@@ -26,7 +26,8 @@
 // - the block stages its 32 la rows and its 32 membership-masked fd rows in
 //   shared memory, with a row stride of P + 1 words so that the 32 threads of
 //   a warp, which read 32 different fd rows at the same p, hit distinct banks
-//   (the la row is one broadcast word per warp);
+//   (the la row is one broadcast word per warp); the tile loop is shared
+//   with K2 (ss_tile.cuh);
 // - each thread loops over p with an int32 accumulator and stores one count;
 //   threadIdx.x runs along w, so a warp's stores are coalesced;
 // - the ragged edges of W are masked here, not padded to the TPU's (8, 128)
@@ -42,9 +43,11 @@
 
 #include <cuda_runtime.h>
 
+#include "ss_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
+using bt::kTile;
 
 __global__ void member_ss_kernel(const int32_t* __restrict__ la,
                                  const int32_t* __restrict__ fd,
@@ -58,30 +61,19 @@ __global__ void member_ss_kernel(const int32_t* __restrict__ la,
   const int s = blockIdx.z;
   const int v0 = blockIdx.y * kTile;
   const int w0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const uint8_t* member_s = member + static_cast<size_t>(s) * P;
 
-  // Cooperative load: consecutive threads read consecutive words of the
-  // row-major [W, P] inputs.
-  for (int i = tid; i < kTile * P; i += kTile * kTile) {
-    const int r = i / P;
-    const int p = i - r * P;
-    const int v = v0 + r;
-    const int w = w0 + r;
-    la_s[r * stride + p] = v < W ? la[static_cast<size_t>(v) * P + p] : -1;
-    fd_s[r * stride + p] =
-        (w < W && member_s[p]) ? fd[static_cast<size_t>(w) * P + p] : INT_MAX;
-  }
+  // Membership folds into the fd tile: a non-member peer's column holds
+  // INT_MAX, which no last-ancestor index reaches.
+  bt::stage_rows(la_s, la, W, P, v0, -1, nullptr);
+  bt::stage_rows(fd_s, fd, W, P, w0, INT_MAX,
+                 member + static_cast<size_t>(s) * P);
   __syncthreads();
 
   const int v = v0 + threadIdx.y;
   const int w = w0 + threadIdx.x;
   if (v >= W || w >= W) return;
-  const int32_t* la_row = la_s + threadIdx.y * stride;
-  const int32_t* fd_row = fd_s + threadIdx.x * stride;
-  int32_t acc = 0;
-  for (int p = 0; p < P; ++p) acc += la_row[p] >= fd_row[p] ? 1 : 0;
-  out[(static_cast<size_t>(s) * W + v) * W + w] = acc;
+  out[(static_cast<size_t>(s) * W + v) * W + w] = bt::count_ge(
+      la_s + threadIdx.y * stride, fd_s + threadIdx.x * stride, P);
 }
 
 }  // namespace
@@ -89,9 +81,7 @@ __global__ void member_ss_kernel(const int32_t* __restrict__ la,
 extern "C" {
 
 // Dynamic shared memory one block needs for a peer axis of P.
-size_t bt_member_ss_smem_bytes(int P) {
-  return 2 * static_cast<size_t>(kTile) * (P + 1) * sizeof(int32_t);
-}
+size_t bt_member_ss_smem_bytes(int P) { return bt::ss_tile_smem_bytes(P); }
 
 // Launch K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // Pointers are device pointers; nothing is allocated or synchronised here.

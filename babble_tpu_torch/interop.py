@@ -2,7 +2,8 @@
 
 The port imports nothing of the JAX package, so state crosses over as
 dictionaries and numpy arrays: event bodies as ``EventBody.to_dict()``
-with their signatures, voting windows as their arrays and row metadata.
+with their signatures, voting windows and DAG snapshots as their arrays and
+row metadata.
 The differential tests feed both packages identical inputs this way.
 """
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from babble_tpu_torch.hashgraph.event import Event, EventBody
+from babble_tpu_torch.ops.dag import SNAPSHOT_FIELDS, DagSnapshot
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
 from babble_tpu_torch.ops.voting import WIN_FIELDS, VotingWindow
 
@@ -25,6 +27,13 @@ _WIN_DTYPES = {
     "member": np.bool_, "sm_s": np.int32, "psi": np.int32, "sm_r": np.int32,
     "rounds": np.int32, "undet": np.bool_, "exists_r": np.bool_,
     "prior_dec_r": np.bool_, "lb_gate_r": np.bool_,
+}
+
+# dtype of every DAG snapshot array, in the order of SNAPSHOT_FIELDS
+_SNAP_DTYPES = {
+    "creator": np.int32, "index": np.int32, "self_parent": np.int32,
+    "other_parent": np.int32, "last_ancestors": np.int32,
+    "first_descendants": np.int32, "middle_bit": np.bool_,
 }
 
 
@@ -61,3 +70,34 @@ def window_from_arrays(fields: Mapping[str, np.ndarray], meta: Mapping,
         wit_hashes=wit_hashes,
         wit_row={h: i for i, h in enumerate(wit_hashes)},
     )
+
+
+def snapshot_from_arrays(fields: Mapping[str, np.ndarray], meta: Mapping,
+                         device: DeviceLike = None) -> DagSnapshot:
+    """A port DagSnapshot whose arrays are tensors on ``device``, from a DAG
+    snapshot's arrays.
+
+    ``fields`` maps every name of ``ops.dag.SNAPSHOT_FIELDS`` to its array;
+    ``meta`` holds ``n_peers``, ``super_majority`` and ``hashes`` (real E
+    rows in order). Raises KeyError for a missing field, TypeError for an
+    array of another dtype and ValueError for one of another shape."""
+    dev = resolve_device(device)
+    n_peers = int(meta["n_peers"])
+    hashes = list(meta["hashes"])
+    E = len(hashes)
+    tensors = {}
+    for name in SNAPSHOT_FIELDS:
+        arr = np.asarray(fields[name])
+        if arr.dtype != _SNAP_DTYPES[name]:
+            raise TypeError(
+                f"snapshot field {name}: dtype {arr.dtype}, want "
+                f"{np.dtype(_SNAP_DTYPES[name])}"
+            )
+        want = (E, n_peers) if name in ("last_ancestors",
+                                        "first_descendants") else (E,)
+        if arr.shape != want:
+            raise ValueError(f"snapshot field {name}: shape {arr.shape}, "
+                             f"want {want}")
+        tensors[name] = torch.tensor(arr, device=dev)
+    return DagSnapshot(**tensors, n_peers=n_peers, hashes=hashes,
+                       super_majority=int(meta["super_majority"]))

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch versions, and
-the build that turns ``csrc/member_ss.cu`` into a shared library.
+the build that turns ``csrc/*.cu`` into one shared library.
 
-The source has a plain C interface and is compiled by ``nvcc`` for
-``sm_90a`` into the git-ignored ``build/kernels/`` directory beside the
-package, on first use, and loaded with ``ctypes``. The library name carries
-a hash of the source and flags, so an edited source never loads a stale
-build.
+Every source has a plain C interface. One ``nvcc`` call compiles them all
+for ``sm_90a`` into one library in the git-ignored ``build/kernels/``
+directory beside the package, on first use; it is loaded with ``ctypes``.
+The library name carries a hash over every source and header under
+``csrc/`` and the flags, so an edited source never loads a stale build.
 
 A wrapper takes its plain version only for tensors on the CPU (the tests).
 For CUDA tensors it launches the kernel or raises: there is no fallback.
@@ -15,28 +15,28 @@ Each wrapper counts its launches in a ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "member_ss.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+          "-v", "-shared"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
-#: nvcc's -Xptxas -v report (registers, spills) of this process's compile;
-#: empty when an existing build was loaded
+#: nvcc's -Xptxas -v report (registers, spills) of every kernel in this
+#: process's compile; empty when an existing build was loaded
 ptxas_report = ""
 
 
@@ -51,14 +51,24 @@ def _nvcc() -> str:
     return found
 
 
+def _sources() -> List[str]:
+    """The kernel sources (``csrc/*.cu``), in name order."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
 def _so_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"libmember_ss-{digest.hexdigest()[:12]}.so")
+    digest = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cu*"))):
+        digest.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            digest.update(f.read() + b"\0")
+    digest.update(" ".join(_FLAGS).encode())
+    name = f"libbt_kernels-{digest.hexdigest()[:12]}.so"
+    return os.path.join(_BUILD_DIR, name)
 
 
 def build() -> str:
-    """Compile the kernel library (where no build of the current source
+    """Compile the kernel library (where no build of the current sources
     exists) and load it; returns its path. Raises RuntimeError when nvcc
     fails."""
     global _lib, ptxas_report
@@ -69,11 +79,11 @@ def build() -> str:
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.tmp.{os.getpid()}"
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+            proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *_sources()],
                                   capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc exit {proc.returncode} on "
-                                   f"{_SRC}:\n{proc.stderr}")
+                raise RuntimeError(f"nvcc exit {proc.returncode}:\n"
+                                   f"{proc.stderr}")
             ptxas_report = (proc.stdout + proc.stderr).strip()
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
@@ -81,6 +91,11 @@ def build() -> str:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.bt_member_ss_counts.restype = ctypes.c_int
+        lib.bt_strongly_see.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.bt_strongly_see.restype = ctypes.c_int
         _lib = lib
     return so
 
@@ -165,12 +180,92 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
 member_ss_counts.launches = 0
 
 
+# =============================================================================
+# K2: the strongly-see matrix of the DAG pipeline (csrc/strongly_see.cu)
+# =============================================================================
+
+#: largest peer axis whose two [32, P + 1] int32 tiles fit one block
+STRONGLY_SEE_MAX_P = MEMBER_SS_MAX_P
+#: rows of la the plain version compares at once, bounding its
+#: [rows, E, P] intermediate
+_PLAIN_ROWS = 512
+
+
+def strongly_see_plain(la: torch.Tensor, fd: torch.Tensor,
+                       super_majority: int) -> torch.Tensor:
+    """SS[..., x, y] = #{p : la[..., x, p] >= fd[..., y, p]} >= sm, as a
+    broadcast compare summed over p and thresholded, over ``_PLAIN_ROWS``
+    rows of x at a time."""
+    parts = [
+        (la[..., x0:x0 + _PLAIN_ROWS, None, :] >= fd[..., None, :, :])
+        .sum(-1, dtype=torch.int32) >= super_majority
+        for x0 in range(0, la.shape[-2], _PLAIN_ROWS)
+    ]
+    if not parts:
+        return torch.empty((*la.shape[:-1], fd.shape[-2]), dtype=torch.bool,
+                           device=la.device)
+    return torch.cat(parts, dim=-2)
+
+
+def _check_strongly_see(la, fd) -> None:
+    if la.dtype != torch.int32 or fd.dtype != torch.int32:
+        raise TypeError(f"la/fd must be int32, got {la.dtype}/{fd.dtype}")
+    if la.dim() not in (2, 3) or fd.shape != la.shape:
+        raise ValueError(
+            f"la and fd must both be [E, P] or [B, E, P], got "
+            f"{tuple(la.shape)} and {tuple(fd.shape)}"
+        )
+    if la.device != fd.device:
+        raise ValueError("la and fd must be on one device")
+
+
+def strongly_see(la: torch.Tensor, fd: torch.Tensor,
+                 super_majority: int) -> torch.Tensor:
+    """K2. bool [E, E] strongly-see matrix from int32 [E, P] coordinates,
+    or [B, E, E] from a batch [B, E, P]. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    _check_strongly_see(la, fd)
+    sm = int(super_majority)
+    if la.device.type == "cpu":
+        return strongly_see_plain(la, fd, sm)
+    if la.device.type != "cuda":
+        raise ValueError(f"strongly_see: unsupported device {la.device}")
+    if not (la.is_contiguous() and fd.is_contiguous()):
+        raise ValueError("strongly_see: inputs must be contiguous")
+    *batch, E, P = la.shape
+    B = batch[0] if batch else 1
+    if P > STRONGLY_SEE_MAX_P:
+        raise ValueError(
+            f"strongly_see: P={P} exceeds {STRONGLY_SEE_MAX_P}, the largest "
+            "peer axis whose shared-memory tiles fit one block"
+        )
+    if B > 65535:
+        raise ValueError(f"strongly_see: batch {B} exceeds the grid's 65535")
+    out = torch.empty((*batch, E, E), dtype=torch.bool, device=la.device)
+    if E == 0 or B == 0:
+        return out
+    if _lib is None:
+        build()
+    with torch.cuda.device(la.device):
+        stream = torch.cuda.current_stream(la.device).cuda_stream
+        rc = _lib.bt_strongly_see(
+            la.data_ptr(), fd.data_ptr(), out.data_ptr(), B, E, P, sm, stream,
+        )
+    _check_launch(rc, "strongly_see")
+    strongly_see.launches += 1
+    return out
+
+
+strongly_see.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     member_ss_counts.launches = 0
+    strongly_see.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launch count per kernel wrapper."""
-    return {"member_ss_counts": member_ss_counts.launches}
-
+    return {"member_ss_counts": member_ss_counts.launches,
+            "strongly_see": strongly_see.launches}

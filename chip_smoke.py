@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke for babble_tpu_torch, the PyTorch/CUDA port: the quickest proof
-that the port builds and runs its live consensus offload on an NVIDIA card.
+that the port builds and runs its consensus paths on an NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,22 +8,36 @@ Needs one CUDA card, nvcc (CUDA_HOME, default /usr/local/cuda) and g++;
 imports only babble_tpu_torch, torch, numpy and the standard library.
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. device and build: the card, its power limit, the kernel and native
-   crypto builds, the host-crypto path;
+1. device and build: the card, its power limit, the kernel library (K1 and
+   K2, built from csrc/) and native crypto builds, the host-crypto path;
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with its time, its plain version's time and its bound;
-3. the main path at 16 validators: a seeded signed gossip stream replayed
-   through the port's Hashgraph in syncs of 64 events with a flush after
-   each — host oracle, TensorConsensus at its defaults, and with
+   with its time, its plain version's time and its bound: K1 at the live
+   sweep's shapes, K2 at the DAG pipeline's, single and batched;
+3. the live offload at 16 validators: a seeded signed gossip stream
+   replayed through the port's Hashgraph in syncs of 64 events with a flush
+   after each — host oracle, TensorConsensus at its defaults, and with
    min_window=0 — committing byte-identical blocks, with no fallback and
    one K1 launch per device sweep;
 4. the same at 64 validators, one of which leaves from round 3 on, so
    sweeps carry two peer-set slots through K1; the stream is long enough
-   that several blocks commit after the change.
+   that several blocks commit after the change;
+5. the all-at-once DAG pipeline (``ops.dag.run_pipeline``) on the card over
+   ``snapshot_from_hashgraph`` of the 16-validator oracle and of a new
+   64-validator stream of 4096 signed events (oracle replay only), equal to
+   the host oracle on every event's round, witness, lamport and
+   round-received and every witness's fame, and its strongly-see matrix
+   equal to K2's plain version on the snapshot's own coordinates;
+6. the pipeline on the card equal to the port's CPU path on a synthetic
+   window at bench.py's shape and on a batch of 8 such windows, see,
+   strongly-see and the packed per-event results; phases 5 and 6 launch K2
+   once per pipeline run, once at each of its four shapes;
+7. the pipeline's times: wall ms per run and events/s at four windows, ms
+   per window of the batch, peak device memory and host-clock ms per stage
+   at (64, 4096), and a profile of one run there (in a fresh process).
 
-For each path, K1 is also held against its plain version, and timed, at the
-shape that path's sweeps gave it most often. The line before the last is
-the kernels' JSON record, one row per path; the last line is
+For each live path, K1 is also held against its plain version, and timed,
+at the shape that path's sweeps gave it most often. The line before the
+last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,6 +58,10 @@ TX_BYTES = 100
 # for the run to commit well past the peer-set change
 EVENTS_16 = 4096
 EVENTS_64 = 16384
+# the DAG pipeline's 64-validator stream: as large a window as the live
+# 64-validator sweeps reach, with no peer-set change (snapshot_from_hashgraph
+# models peer-set 0 only)
+EVENTS_DAG_64 = 4096
 # the 64-validator path: the round from which one validator is gone, and the
 # blocks that must commit from rounds after it
 CHANGE_ROUND = 3
@@ -58,6 +76,13 @@ PEAK_OPS_PER_S = 67e12
 # buckets of 16-validator (P = 16) and 64-validator (P = 64, S = 2) windows.
 K1_SHAPES = [(16, 4, 1), (37, 13, 3), (128, 16, 1), (256, 16, 1),
              (256, 64, 2), (512, 64, 2), (1024, 64, 2)]
+# K2 (B, E, P): ragged and full single windows up to the pipeline's largest
+# (4096 events at 64 validators), the 16-validator stream's window (4096,
+# 16), bench.py's window (512, 16), and a batch of 8 of those
+K2_SHAPES = [(1, 64, 4), (1, 100, 6), (1, 512, 16), (1, 1000, 40),
+             (1, 4096, 16), (1, 4096, 64), (8, 512, 16)]
+# the K2 rows of the kernels line: every shape the DAG path launches K2 at
+K2_ROWS = [(1, 4096, 16), (1, 4096, 64), (1, 512, 16), (8, 512, 16)]
 
 
 def log(msg: str) -> None:
@@ -132,6 +157,57 @@ def check_k1(shape, seed: int) -> dict:
     )
     bound_ms, bound_by = k1_bound_ms(W, P, S)
     return {"shape": [W, P, S], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def k2_bound_ms(B: int, E: int, P: int):
+    """Least time for K2's work on an H100 SXM: la and fd read once and the
+    bool output written once at HBM rate, or B·E²·P compare-adds (two
+    32-bit operations each) at the CUDA cores' rate — whichever is
+    larger."""
+    nbytes = 2 * 4 * B * E * P + B * E * E
+    ops = 2 * B * E * E * P
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_inputs(B: int, E: int, P: int, seed: int):
+    """Random coordinates with both sentinels mixed in; [E, P] for B = 1,
+    else [B, E, P]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    shape = (B, E, P) if B > 1 else (E, P)
+    la = rng.randint(-1, 40, size=shape).astype(np.int32)
+    fd = rng.randint(0, 40, size=shape).astype(np.int32)
+    fd[rng.rand(*shape) < 0.25] = np.int32(2**31 - 1)
+    la[rng.rand(*shape) < 0.1] = -1
+    return torch.from_numpy(la).cuda(), torch.from_numpy(fd).cuda()
+
+
+def check_k2(shape, seed: int) -> dict:
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    B, E, P = shape
+    sm = 2 * P // 3 + 1
+    la, fd = k2_inputs(B, E, P, seed)
+    got = kernels.strongly_see(la, fd, sm)
+    want = kernels.strongly_see_plain(la, fd, sm)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K2 {shape}: {bad} entries differ from plain")
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    ms = time_on_device(lambda: kernels.strongly_see(la, fd, sm))
+    plain_ms = time_on_device(
+        lambda: kernels.strongly_see_plain(la, fd, sm), reps=20
+    )
+    bound_ms, bound_by = k2_bound_ms(B, E, P)
+    return {"shape": [B, E, P], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -388,6 +464,328 @@ def k1_row(label, res, seed: int) -> dict:
     }
 
 
+# -- the DAG pipeline ---------------------------------------------------------
+
+
+def oracle_decisions(h, hashes):
+    """What the host oracle decided for each row of a snapshot: round,
+    witness, lamport, fame (witnesses; 0 elsewhere) and round-received (-1
+    when undetermined), as the pipeline packs them."""
+    import numpy as np
+
+    from babble_tpu_torch.common.trilean import Trilean
+
+    fame_of = {Trilean.TRUE: 1, Trilean.FALSE: -1, Trilean.UNDEFINED: 0}
+    fame = {}
+    for r in range(h.store.last_round() + 1):
+        for x, e in h.store.get_round(r).created_events.items():
+            if e.witness:
+                fame[x] = fame_of[e.famous]
+    rr = [h.store.get_event(eh).round_received for eh in hashes]
+    return {
+        "rounds": np.array([h.round(eh) for eh in hashes]),
+        "witness": np.array([h.witness(eh) for eh in hashes]),
+        "lamport": np.array([h.lamport_timestamp(eh) for eh in hashes]),
+        "fame": np.array([fame.get(eh, 0) for eh in hashes]),
+        "round_received": np.array([-1 if r is None else r for r in rr]),
+    }
+
+
+def k2_launched(shape, k2_at: Counter, fn):
+    """``fn()``, adding the K2 launches it made to ``k2_at[shape]``."""
+    from babble_tpu_torch.ops import kernels
+
+    before = kernels.strongly_see.launches
+    out = fn()
+    k2_at[shape] += kernels.strongly_see.launches - before
+    return out
+
+
+def dag_against_oracle(label, h, k2_at: Counter):
+    """run_pipeline on the card over ``h``'s snapshot must equal what the
+    oracle ``h`` decided, event for event, and its strongly-see matrix
+    (K2's output on the path) must equal K2's plain version on the
+    snapshot's own coordinates. Returns the snapshot."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch.ops import dag, kernels
+
+    t0 = time.perf_counter()
+    snap = dag.snapshot_from_hashgraph(h)
+    build_s = time.perf_counter() - t0
+    stats = {}
+    got = k2_launched(
+        (1, snap.n_events, snap.n_peers), k2_at,
+        lambda: dag.run_pipeline(snap, return_matrices=True, device="cuda",
+                                 stats=stats))
+    want = oracle_decisions(h, snap.hashes)
+    for k, v in want.items():
+        if not np.array_equal(got[k], v):
+            bad = int((got[k] != v).sum())
+            raise AssertionError(f"[dag {label}] {k}: {bad} of "
+                                 f"{len(v)} events differ from the oracle")
+    la, fd = (torch.as_tensor(a, device="cuda")
+              for a in (snap.last_ancestors, snap.first_descendants))
+    plain = kernels.strongly_see_plain(la, fd, snap.super_majority)
+    if not np.array_equal(got["strongly_see"], plain.cpu().numpy()):
+        bad = int((got["strongly_see"] != plain.cpu().numpy()).sum())
+        raise AssertionError(f"[dag {label}] strongly-see: {bad} entries "
+                             "differ from K2's plain version")
+    n_wit = int(want["witness"].sum())
+    log(f"[dag {label}] run_pipeline on the card equals the oracle: "
+        f"{snap.n_events} events, P {snap.n_peers}, sm "
+        f"{snap.super_majority}, {int(want['rounds'].max()) + 1} rounds, "
+        f"{n_wit} witnesses ({int((want['fame'] != 0).sum())} decided), "
+        f"{int((want['round_received'] >= 0).sum())} events received; "
+        f"strongly-see equal to K2's plain version on the snapshot; "
+        f"snapshot built in {build_s:.2f} s; passes {stats}")
+    return snap
+
+
+def dag_against_cpu(k2_at: Counter):
+    """The card equals the port's CPU path on see, strongly-see (so K2
+    equals its plain version on the path's inputs) and the packed results:
+    one synthetic window at bench.py's shape, and a batch of 8. Returns
+    (snapshot, batch arrays, super-majority); two pipeline runs on the
+    card."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch.ops import dag
+    from babble_tpu_torch.parallel import batch_of_snapshots, batched_pipeline
+
+    snap = dag.synthetic_snapshot(16, 512)
+    got = k2_launched(
+        (1, 512, 16), k2_at,
+        lambda: dag.run_pipeline(snap, return_matrices=True, device="cuda"))
+    want = dag.run_pipeline(snap, return_matrices=True, device="cpu")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"[dag synthetic] {k} differs card vs CPU")
+    arrays, sm = batch_of_snapshots(8, 16, 512)
+    round_bound = 512 // sm + 2
+    got_b = k2_launched(
+        (8, 512, 16), k2_at,
+        lambda: batched_pipeline(sm, round_bound, device="cuda")(*arrays))
+    want_b = batched_pipeline(sm, round_bound, device="cpu")(*arrays)
+    for name, g, w in zip(("see", "ss", "packed"), got_b, want_b):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"[dag batch] {name} differs card vs CPU")
+    log(f"[dag] card equals CPU on synthetic (16, 512): "
+        f"{int(got['rounds'].max()) + 1} rounds, "
+        f"{int((got['round_received'] >= 0).sum())} received; and on the "
+        f"batch of 8 windows (see, ss, packed)")
+    return snap, arrays, sm
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` ending in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_trace(fn) -> list:
+    """(name, µs) of every device kernel, copy and fill of one ``fn()``
+    call, from torch.profiler's exported trace, which keeps kernels that
+    no PyTorch operation launched (K1 and K2 launch through ctypes)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [(e["name"], float(e["dur"])) for e in trace["traceEvents"]
+            if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def profile_dag(snap, wall_ms: float) -> dict:
+    """Where one pipeline run's time goes at ``snap``: device busy time
+    (torch.profiler) against ``wall_ms``, the unprofiled median wall time
+    of a run, the top device operations, and the shares of K2 and of
+    vote_matmul's float32 products (cuBLAS GEMMs) in the busy time."""
+    from babble_tpu_torch.ops import dag
+
+    dag.run_pipeline(snap, device="cuda")
+    ops = device_trace(lambda: dag.run_pipeline(snap, device="cuda"))
+    if not ops:
+        log("[dag profile] the profiler saw no device activity; device busy "
+            "share not measured")
+        return {"busy_ms": None}
+    by_name = Counter()
+    for name, us in ops:
+        by_name[name] += us
+    busy_us = sum(by_name.values())
+    k2_us = sum(v for k, v in by_name.items() if "strongly_see" in k)
+    n_k2 = sum("strongly_see" in name for name, _us in ops)
+    gemm_us = sum(v for k, v in by_name.items()
+                  if "gemm" in k.lower() or "nvjet" in k)
+    top = [(k[:60], round(v / 1e3, 4)) for k, v in by_name.most_common(8)]
+    rec = {"busy_ms": busy_us / 1e3, "busy_share": busy_us / 1e3 / wall_ms,
+           "device_ops": len(ops), "k2_ms": k2_us / 1e3,
+           "k2_share": k2_us / busy_us, "gemm_ms": gemm_us / 1e3,
+           "vote_matmul_share": gemm_us / busy_us}
+    log(f"[dag profile] one run at (P {snap.n_peers}, E {snap.n_events}): "
+        f"device busy {rec['busy_ms']:.3f} ms over {len(ops)} device ops, "
+        f"{100 * rec['busy_share']:.1f}% of the {wall_ms:.3f} ms median "
+        f"wall time; K2 {rec['k2_ms']:.4f} ms in {n_k2} launch(es) "
+        f"({100 * rec['k2_share']:.2f}% of busy), vote_matmul's products "
+        f"{rec['gemm_ms']:.3f} ms ({100 * rec['vote_matmul_share']:.1f}%); "
+        f"top (name, ms): {top}")
+    return rec
+
+
+def stage_breakdown(snap, reps: int = 3) -> dict:
+    """Host-clock ms of each pipeline stage at ``snap``, each ending in a
+    synchronize (median of ``reps``): the stages of ``ops.dag.batched_core``
+    called one by one on the card."""
+    import torch
+
+    from babble_tpu_torch.ops import dag
+
+    creator, index, sp, op, la, fd, mid = (
+        t[None] for t in dag.snapshot_tensors(snap, torch.device("cuda")))
+    sm = snap.super_majority
+    bound = snap.n_events // sm + 2
+    samples = {k: [] for k in ("see", "strongly_see", "rounds", "lamport",
+                               "fame", "round_received")}
+    stats = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        samples[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps + 1):
+        see = timed("see", lambda: dag.see_matrix(creator, index, la))
+        ss = timed("strongly_see",
+                   lambda: dag.strongly_see_matrix(la, fd, sm))
+        rounds, wit = timed("rounds", lambda: dag.compute_rounds(
+            creator, sp, op, ss, sm, stats=stats))
+        timed("lamport", lambda: dag.compute_lamport(sp, op, stats=stats))
+        loop = min(bound, int(rounds.max()))
+        fame = timed("fame", lambda: dag.decide_fame(
+            rounds, wit, see, ss, mid, sm, loop))
+        timed("round_received", lambda: dag.decide_round_received(
+            rounds, wit, fame, see, sm, loop))
+    med = {k: statistics.median(v[1:]) for k, v in samples.items()}
+    log(f"[dag stages] (P {snap.n_peers}, E {snap.n_events}), host-clock ms "
+        f"per stage, synchronised, median of {reps}: "
+        f"{json.dumps({k: round(v, 3) for k, v in med.items()})}; "
+        f"passes {stats}, round loop {loop} of bound {bound}")
+    return med
+
+
+def dag_times(windows, batch) -> None:
+    """Median wall ms per run_pipeline and events/s at each window; ms per
+    window of the batched pipeline; peak device memory of one run at the
+    last window."""
+    import torch
+
+    from babble_tpu_torch.ops import dag
+    from babble_tpu_torch.parallel import batched_pipeline
+
+    for label, snap, reps in windows:
+        stats = {}
+        ms = _wall_ms(lambda: dag.run_pipeline(snap, device="cuda",
+                                               stats=stats), reps)
+        log(f"[dag times] {label} (P {snap.n_peers}, E {snap.n_events}): "
+            f"run_pipeline {ms:.3f} ms median of {reps}, "
+            f"{snap.n_events / ms * 1e3:.1f} events/s; round loop "
+            f"{stats['round_loop']} of bound {stats['round_bound']}")
+    arrays, sm = batch
+    B, E = arrays[0].shape
+    fn = batched_pipeline(sm, E // sm + 2, device="cuda")
+    ms = _wall_ms(lambda: fn(*arrays)[2].cpu(), 5)
+    log(f"[dag times] batched pipeline, {B} windows of (16, {E}): "
+        f"{ms:.3f} ms per batch, {ms / B:.3f} ms per window, "
+        f"{B * E / ms * 1e3:.1f} events/s")
+    big = windows[-1][1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dag.run_pipeline(big, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[dag times] peak device memory of one run at (P {big.n_peers}, "
+        f"E {big.n_events}): {(peak - base) / 2**20:.1f} MiB above the "
+        f"{base / 2**20:.1f} MiB held before it")
+
+
+def profile_child() -> None:
+    """The (64, 4096) profile, run by ``profile_dag_fresh`` in a process of
+    its own: median wall time of a run, then one profiled run."""
+    from babble_tpu_torch.ops import dag, kernels
+
+    kernels.build()
+    snap = dag.synthetic_snapshot(64, 4096)
+    wall = _wall_ms(lambda: dag.run_pipeline(snap, device="cuda"), 5)
+    profile_dag(snap, wall)
+
+
+def profile_dag_fresh() -> None:
+    """``profile_child`` in a fresh interpreter, waited for. In this
+    process, minutes old, the profiler's trace of the same run lost device
+    records, K2's among them, where a young process kept every one."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.profile_child()"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"profile process exit {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+
+
+def k2_row(row: dict, launches: int, by_phase: dict) -> dict:
+    """K2's kernels-line row at one shape: its launches on the DAG path at
+    that shape, and the time and bound measured in phase 2."""
+    B, E, P = row["shape"]
+    return {
+        "name": f"strongly_see[B {B}, E {E}, P {P}]",
+        "route": "cuda",
+        "source": "babble_tpu_torch/csrc/strongly_see.cu",
+        "replaces": "babble_tpu/ops/pallas_kernels.py:142",
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "shape": row["shape"],
+        "launches_by_phase": by_phase,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -400,7 +798,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from babble_tpu_torch import native_crypto
-    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.ops import dag, kernels
     from babble_tpu_torch.ops.device import describe
 
     # Phase 1: device and build
@@ -422,6 +820,13 @@ def main(argv=None) -> int:
         log(f"K1 {shape}: equal to plain; kernel {row['ms']:.5f} ms, plain "
             f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
             f"({row['bound_by']})")
+    k2_checked = {}
+    for i, shape in enumerate(K2_SHAPES):
+        row = check_k2(shape, seed=args.seed + 50 + i)
+        k2_checked[shape] = row
+        log(f"K2 (B, E, P) {shape}: equal to plain; kernel {row['ms']:.5f} "
+            f"ms, plain {row['plain_ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.3g} ms ({row['bound_by']})")
 
     # Phase 3: 16 validators
     t0 = time.perf_counter()
@@ -444,6 +849,45 @@ def main(argv=None) -> int:
     )
     profile_sweep("64", oracle64)
     rows.append(k1_row("64 validators", res64, seed=args.seed + 101))
+    del oracle64
+
+    # Phases 5 and 6: the DAG pipeline, K2's path; counts from 0 to here
+    t0 = time.perf_counter()
+    events, _keys, peers = gossip_stream(64, EVENTS_DAG_64, args.seed + 2)
+    dag64, dag64_s = replay(events, peers)
+    log(f"[dag 64] stream: {len(events)} signed events, oracle replay "
+        f"{dag64_s:.2f} s ({time.perf_counter() - t0:.2f} s with the stream; "
+        f"set-up)")
+    k2_at = Counter()  # K2 launches on the path, by (B, E, P)
+    kernels.reset_launch_counts()
+    snap16 = dag_against_oracle("16", oracle16, k2_at)
+    snap64 = dag_against_oracle("64", dag64, k2_at)
+    oracle_launches = kernels.launch_counts()
+    syn, batch_arrays, batch_sm = dag_against_cpu(k2_at)
+    launches = kernels.launch_counts()
+    by_phase = {"vs_oracle": oracle_launches["strongly_see"],
+                "vs_cpu": launches["strongly_see"]
+                - oracle_launches["strongly_see"]}
+    if by_phase != {"vs_oracle": 2, "vs_cpu": 2}:
+        raise AssertionError(f"K2 launches {by_phase} != pipeline runs on "
+                             "the card (2 and 2)")
+    if dict(k2_at) != {shape: 1 for shape in K2_ROWS}:
+        raise AssertionError(f"K2 launches by shape {dict(k2_at)}: want one "
+                             f"at each of {K2_ROWS}")
+    if launches["member_ss_counts"] != 0:
+        raise AssertionError("the DAG pipeline launched K1")
+    log(f"[dag] K2 launches = pipeline runs on the card: {by_phase}; by "
+        f"(B, E, P): {dict(k2_at)}")
+
+    # Phase 7: the pipeline's times
+    syn64 = dag.synthetic_snapshot(64, 4096)
+    dag_times([("synthetic", syn, 10), ("16-validator stream", snap16, 5),
+               ("64-validator stream", snap64, 5), ("synthetic", syn64, 5)],
+              (batch_arrays, batch_sm))
+    stage_breakdown(syn64)
+    profile_dag_fresh()
+    rows += [k2_row(k2_checked[shape], k2_at[shape], by_phase)
+             for shape in K2_ROWS]
 
     log(dev["name_power"] or "nvidia-smi: not available")
     print(json.dumps({"kernels": rows}), flush=True)

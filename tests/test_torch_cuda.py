@@ -1,4 +1,4 @@
-"""Tests of the PyTorch port that need an NVIDIA card: the CUDA kernel has
+"""Tests of the PyTorch port that need an NVIDIA card: the CUDA kernels have
 no CPU mode. They skip without a card. This file imports neither JAX nor
 the JAX package, so on a machine without JAX run it without the repo's
 conftest (which sets JAX up):
@@ -18,8 +18,9 @@ from babble_tpu_torch.crypto.keys import PrivateKey
 from babble_tpu_torch.crypto.secp256k1 import N as CURVE_N
 from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
 from babble_tpu_torch.hashgraph.accel import TensorConsensus
-from babble_tpu_torch.ops import kernels, voting
+from babble_tpu_torch.ops import dag, kernels, voting
 from babble_tpu_torch.ops.intdot import vote_matmul
+from babble_tpu_torch.parallel import batch_of_snapshots, batched_pipeline
 from babble_tpu_torch.peers import Peer, PeerSet
 
 INT32_MAX = np.int32(2**31 - 1)
@@ -56,7 +57,8 @@ def test_k1_kernel_equals_plain(card, W, P, S):
     kernels.reset_launch_counts()
     got = kernels.member_ss_counts(la, fd, member)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"member_ss_counts": 1}
+    assert kernels.launch_counts() == {"member_ss_counts": 1,
+                                      "strongly_see": 0}
     assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
     cpu = kernels.member_ss_counts(*(torch.from_numpy(a) for a in arrays))
     assert torch.equal(got.cpu(), cpu)
@@ -132,7 +134,8 @@ def test_sweep_on_card_equals_cpu(card):
     assert win.member.shape[0] == 2
     kernels.reset_launch_counts()
     got = voting.launch_sweep(win, card).cpu()
-    assert kernels.launch_counts() == {"member_ss_counts": 1}
+    assert kernels.launch_counts() == {"member_ss_counts": 1,
+                                      "strongly_see": 0}
     assert torch.equal(got, voting.launch_sweep(win, torch.device("cpu")))
 
 
@@ -155,3 +158,98 @@ def test_failing_k1_launch_raises_out_of_flush(card, monkeypatch, pipeline):
         h.flush_consensus()
     assert h.accel.fallbacks == 0
     assert h.accel.sweeps == 0
+
+
+# -- K2 and the DAG pipeline --------------------------------------------------
+
+
+def _k2_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    la = rng.randint(-1, 40, size=shape).astype(np.int32)
+    fd = rng.randint(0, 40, size=shape).astype(np.int32)
+    fd[rng.rand(*shape) < 0.25] = INT32_MAX
+    la[rng.rand(*shape) < 0.1] = -1
+    return la, fd
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1), (33, 5), (64, 4), (100, 6), (512, 16), (1000, 40), (4096, 64),
+    (65, 900), (3, 37, 7), (8, 512, 16),
+])
+def test_k2_kernel_equals_plain(card, shape):
+    """K2 equals its plain version, bit for bit, single and batched, at
+    ragged and full shapes, and counts one launch; the plain version on the
+    card equals it on the CPU."""
+    la_np, fd_np = _k2_inputs(shape, seed=sum(shape))
+    la, fd = torch.from_numpy(la_np).to(card), torch.from_numpy(fd_np).to(card)
+    sm = 2 * shape[-1] // 3 + 1
+    kernels.reset_launch_counts()
+    got = kernels.strongly_see(la, fd, sm)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"member_ss_counts": 0,
+                                      "strongly_see": 1}
+    assert got.dtype == torch.bool
+    assert tuple(got.shape) == (*shape[:-1], shape[-2])
+    assert torch.equal(got, kernels.strongly_see_plain(la, fd, sm))
+    if shape[-2] <= 1000:
+        cpu = kernels.strongly_see(torch.from_numpy(la_np),
+                                   torch.from_numpy(fd_np), sm)
+        assert torch.equal(got.cpu(), cpu)
+
+
+def test_k2_refuses_what_it_cannot_take(card):
+    la, fd = (torch.from_numpy(a).to(card) for a in _k2_inputs((32, 8), 1))
+    with pytest.raises(TypeError):
+        kernels.strongly_see(la.to(torch.int64), fd.to(torch.int64), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.strongly_see(la.t().contiguous().t(), fd, 5)
+    with pytest.raises(ValueError, match="one device"):
+        kernels.strongly_see(la, fd.cpu(), 5)
+    P = kernels.STRONGLY_SEE_MAX_P + 1
+    big = torch.zeros((16, P), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="exceeds"):
+        kernels.strongly_see(big, big, 3)
+    empty = torch.zeros((0, 8), dtype=torch.int32, device=card)
+    kernels.reset_launch_counts()
+    assert tuple(kernels.strongly_see(empty, empty, 3).shape) == (0, 0)
+    assert kernels.launch_counts()["strongly_see"] == 0
+
+
+def test_pipeline_on_card_equals_cpu_one_k2_launch_per_run(card):
+    """run_pipeline on the card equals the CPU run (held against the JAX
+    package by tests/test_torch_dag.py), and each run launches K2 once."""
+    snap = dag.synthetic_snapshot(16, 512)
+    want = dag.run_pipeline(snap, return_matrices=True, device="cpu")
+    kernels.reset_launch_counts()
+    for runs in (1, 2):
+        got = dag.run_pipeline(snap, return_matrices=True, device=card)
+        assert kernels.launch_counts() == {"member_ss_counts": 0,
+                                          "strongly_see": runs}
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_batched_pipeline_on_card_equals_cpu(card):
+    arrays, sm = batch_of_snapshots(3, 4, 64)
+    want = batched_pipeline(sm, 64, device="cpu")(*arrays)
+    kernels.reset_launch_counts()
+    got = batched_pipeline(sm, 64, device=card)(*arrays)
+    assert kernels.launch_counts()["strongly_see"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+class _FailingK2Lib:
+    """A kernel library whose K2 launch reports
+    cudaErrorInvalidConfiguration."""
+
+    def bt_strongly_see(self, *args):
+        return 9
+
+
+def test_failing_k2_launch_raises_out_of_pipeline(card, monkeypatch):
+    monkeypatch.setattr(kernels, "_lib", _FailingK2Lib())
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        dag.run_pipeline(dag.synthetic_snapshot(4, 64), device=card)
+    assert kernels.launch_counts()["strongly_see"] == 0

@@ -5,8 +5,12 @@ run when the card is asked for.
   imports ``jax``, ``jaxlib`` or ``babble_tpu[.…]``;
 - a fresh interpreter imports every port module and finds no ``jax*`` or
   ``babble_tpu.*`` module loaded;
-- without a GPU, ``resolve_device()`` and ``TensorConsensus()`` at their
-  defaults raise instead of running on the CPU.
+- without a GPU, ``resolve_device()``, ``TensorConsensus()``,
+  ``run_pipeline()`` and ``batched_pipeline()`` at their defaults raise
+  instead of running on the CPU.
+
+Both scans walk the whole package, so every module (``ops/dag.py`` and
+``parallel/`` included) is covered without a list to keep.
 """
 
 from __future__ import annotations
@@ -104,6 +108,19 @@ def test_default_device_raises_without_gpu(monkeypatch):
         TensorConsensus()
     with pytest.raises(RuntimeError, match="CUDA"):
         on_accelerator()
+
+
+def test_dag_pipeline_default_device_raises_without_gpu(monkeypatch):
+    from babble_tpu_torch.ops.dag import run_pipeline, synthetic_snapshot
+    from babble_tpu_torch.parallel import batched_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_pipeline(synthetic_snapshot(4, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batched_pipeline(3, 8)
+    assert {"babble_tpu_torch.ops.dag", "babble_tpu_torch.parallel",
+            "babble_tpu_torch.parallel.pipeline"} <= set(_port_modules())
 
 
 def test_explicit_cpu_device():
