@@ -9,33 +9,37 @@
 //
 // la, fd: int32 [W, P] row-major; member: torch.bool (one byte) [S, P];
 // out: int32 [S, W, W]. Missing coordinates carry the sentinels la = -1 and
-// fd = INT32_MAX. Last-ancestor indexes never reach INT32_MAX, so loading
-// INT32_MAX into fd for a non-member peer gives the same count as multiplying
-// the compare by member[s, p] — the Pallas wrapper folds membership the same
-// way.
+// fd = INT32_MAX. The kernel computes the product by member, exactly, for
+// every pair of int32 values. The Pallas wrapper folds membership into fd
+// as INT32_MAX instead (pallas_kernels.py:100-102); the two agree wherever
+// la stays below INT32_MAX, which last-ancestor indexes always do. That is
+// K1's stated domain.
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 132 SMs): it reads 8*W*P + S*P
-// bytes, writes 4*S*W^2 bytes and does S*W^2*P compare-adds. At the live
-// shapes (W a power of two from 16 to 512, P a multiple of 8 up to 64, S of 1
-// or 2) that is at most about 2 MB and 34 M integer operations, a few
-// microseconds of bandwidth or issue: the launch itself bounds it. So the
-// design is the simple, correct one, and speed work (wgmma on 0/1 operands,
-// TMA) is left for later:
+// What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s of 32-bit
+// operations): it reads 8*W*P + S*P bytes, writes 4*S*W^2 bytes and does
+// S*W^2*P compare-adds. At the live shapes (W a power of two from 16 to
+// 1024, P a multiple of 8 up to 64, S of 1 or 2) that is at most 4 us of
+// work, and at the common ones (W 128-256) well under 1 us: the launch
+// bounds it there, and the design must not add to it.
 //
-// - one block per 32x32 (v, w) output tile, blockIdx.z = s;
-// - the block stages its 32 la rows and its 32 membership-masked fd rows in
-//   shared memory, with a row stride of P + 1 words so that the 32 threads of
-//   a warp, which read 32 different fd rows at the same p, hit distinct banks
-//   (the la row is one broadcast word per warp); the tile loop is shared
-//   with K2 (ss_tile.cuh);
-// - each thread loops over p with an int32 accumulator and stores one count;
-//   threadIdx.x runs along w, so a warp's stores are coalesced;
-// - the ragged edges of W are masked here, not padded to the TPU's (8, 128)
-//   tiles.
+// The design (the tile loop K2 shares, ss_tile.cuh): 256 threads per
+// block, each holding a 1x4 (32 tile) or 8x8 (128 tile) register tile of
+// float counters per slot; la and fd stream through a cp.async ring of
+// 16-peer chunks laid out [p][row], fd staged once and unmasked,
+// beside the membership rows of the block's slots as 0/1 weights. One
+// compare (ISETP) per (v, w, p) feeds a predicated add (FADD) of each
+// slot's weight, so S = 2 costs one compare, not two: a block takes one
+// slot when S = 1 and two otherwise (blockIdx.z = slot pair). The 128 tile
+// is taken where it still gives two blocks per SM (W over 2048), the 32
+// tile below, so that the live buckets spread over the SMs. The epilogue
+// stores four counts as one 16-byte word, consecutive threads on
+// consecutive words of a row (single words where W is not a multiple of
+// 4). The ragged edges of W and P are masked at staging, not padded to the
+// TPU's (8, 128) tiles.
 //
-// The wrapper (babble_tpu_torch/ops/kernels.py) checks device, dtypes, shapes
-// and contiguity, and refuses a P whose two tiles exceed the 227 KB of shared
-// memory a block can use.
+// The wrapper (babble_tpu_torch/ops/kernels.py) checks device, dtypes,
+// shapes and contiguity, and refuses a P over 2^24, where the float counter
+// stops being exact.
 
 #include <climits>
 #include <cstddef>
@@ -47,60 +51,91 @@
 
 namespace {
 
-using bt::kTile;
+template <int B, int NS>
+__global__ void __launch_bounds__(bt::kThreads, (bt::kBlocksPerSM<B, NS>))
+    member_ss_kernel(const int32_t* __restrict__ la,
+                     const int32_t* __restrict__ fd,
+                     const uint8_t* __restrict__ member,
+                     int32_t* __restrict__ out, int W, int P, int S) {
+  using T = bt::Tile<B>;
+  __shared__ __align__(16) bt::Ring<B, NS> ring;
 
-__global__ void member_ss_kernel(const int32_t* __restrict__ la,
-                                 const int32_t* __restrict__ fd,
-                                 const uint8_t* __restrict__ member,
-                                 int32_t* __restrict__ out, int W, int P) {
-  extern __shared__ int32_t smem[];
-  const int stride = P + 1;
-  int32_t* la_s = smem;                   // [kTile][P + 1]
-  int32_t* fd_s = smem + kTile * stride;  // [kTile][P + 1]
+  const int s0 = blockIdx.z * NS;
+  const int v0 = blockIdx.y * B;
+  const int w0 = blockIdx.x * B;
+  float acc[NS][T::kTM][T::kTN];
+  bt::count_tile<B, NS, true>(ring, la, fd, member, W, P, S, s0, v0, w0,
+                              acc);
 
-  const int s = blockIdx.z;
-  const int v0 = blockIdx.y * kTile;
-  const int w0 = blockIdx.x * kTile;
-
-  // Membership folds into the fd tile: a non-member peer's column holds
-  // INT_MAX, which no last-ancestor index reaches.
-  bt::stage_rows(la_s, la, W, P, v0, -1, nullptr);
-  bt::stage_rows(fd_s, fd, W, P, w0, INT_MAX,
-                 member + static_cast<size_t>(s) * P);
-  __syncthreads();
-
-  const int v = v0 + threadIdx.y;
-  const int w = w0 + threadIdx.x;
-  if (v >= W || w >= W) return;
-  out[(static_cast<size_t>(s) * W + v) * W + w] = bt::count_ge(
-      la_s + threadIdx.y * stride, fd_s + threadIdx.x * stride, P);
+  const int tx = threadIdx.x % T::kThreadsX;
+  const int ty = threadIdx.x / T::kThreadsX;
+  const bool words = W % 4 == 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s0 + s >= S) break;
+    int32_t* plane = out + static_cast<size_t>(s0 + s) * W * W;
+#pragma unroll
+    for (int i = 0; i < T::kTM; ++i) {
+      const int v = v0 + T::row(ty, i);
+      if (v >= W) continue;
+      int32_t* row = plane + static_cast<size_t>(v) * W;
+#pragma unroll
+      for (int j0 = 0; j0 < T::kTN; j0 += 4) {
+        const int w = w0 + T::col(tx, j0);
+        if (w >= W) continue;
+        const int4 c = make_int4(static_cast<int>(acc[s][i][j0]),
+                                 static_cast<int>(acc[s][i][j0 + 1]),
+                                 static_cast<int>(acc[s][i][j0 + 2]),
+                                 static_cast<int>(acc[s][i][j0 + 3]));
+        if (words) {  // w + 3 < W, and the word is 16-byte aligned
+          *reinterpret_cast<int4*>(row + w) = c;
+        } else {
+          const int cs[4] = {c.x, c.y, c.z, c.w};
+          for (int j = 0; j < 4 && w + j < W; ++j) row[w + j] = cs[j];
+        }
+      }
+    }
+  }
 }
+
+template <int B, int NS>
+int launch(const void* la, const void* fd, const void* member, void* out,
+           int W, int P, int S, int groups, void* stream) {
+  const dim3 grid((W + B - 1) / B, (W + B - 1) / B, groups);
+  member_ss_kernel<B, NS><<<grid, bt::kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(la), static_cast<const int32_t*>(fd),
+      static_cast<const uint8_t*>(member), static_cast<int32_t*>(out), W, P,
+      S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Slots per block: one for S = 1, else two.
+int slots_per_block(int S) { return S == 1 ? 1 : 2; }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs for a peer axis of P.
-size_t bt_member_ss_smem_bytes(int P) { return bt::ss_tile_smem_bytes(P); }
+// Side of the output tile K1 takes for W voters and S slots: 32 or 128.
+int bt_member_ss_tile(int W, int S) {
+  const int ns = slots_per_block(S);
+  return bt::tile_side(W, (S + ns - 1) / ns);
+}
 
 // Launch K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // Pointers are device pointers; nothing is allocated or synchronised here.
 int bt_member_ss_counts(const void* la, const void* fd, const void* member,
                         void* out, int W, int P, int S, void* stream) {
   if (W <= 0 || P < 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bt_member_ss_smem_bytes(P);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        member_ss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const bool large = bt_member_ss_tile(W, S) == 128;
+  if (S == 1) {
+    return large ? launch<128, 1>(la, fd, member, out, W, P, S, 1, stream)
+                 : launch<32, 1>(la, fd, member, out, W, P, S, 1, stream);
   }
-  const dim3 grid((W + kTile - 1) / kTile, (W + kTile - 1) / kTile, S);
-  const dim3 block(kTile, kTile);
-  member_ss_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(la), static_cast<const int32_t*>(fd),
-      static_cast<const uint8_t*>(member), static_cast<int32_t*>(out), W, P);
-  return static_cast<int>(cudaGetLastError());
+  const int groups = (S + 1) / 2;
+  return large ? launch<128, 2>(la, fd, member, out, W, P, S, groups, stream)
+               : launch<32, 2>(la, fd, member, out, W, P, S, groups, stream);
 }
 
 }  // extern "C"

@@ -96,6 +96,9 @@ def build() -> str:
             ctypes.c_void_p,
         ]
         lib.bt_strongly_see.restype = ctypes.c_int
+        for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = lib
     return so
 
@@ -109,10 +112,9 @@ def _check_launch(rc: int, what: str) -> None:
 # K1: per-peer-set strongly-see counts (csrc/member_ss.cu)
 # =============================================================================
 
-#: shared memory one block may use on Hopper (232,448 bytes)
-_MAX_SMEM = 232448
-#: largest peer axis whose two [32, P + 1] int32 tiles fit in it
-MEMBER_SS_MAX_P = _MAX_SMEM // (2 * 32 * 4) - 1
+#: largest peer axis: the kernels count in float32 registers, exact up to
+#: 2^24
+MEMBER_SS_MAX_P = 2**24
 
 
 def member_ss_counts_plain(la: torch.Tensor, fd: torch.Tensor,
@@ -145,7 +147,12 @@ def _check_member_ss(la, fd, member) -> None:
 def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
                      member: torch.Tensor) -> torch.Tensor:
     """K1. int32 [S, W, W] strongly-see counts per peer-set slot. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel.
+
+    Both compute the product by ``member`` exactly for every int32 value.
+    The JAX package's Pallas kernel folds membership into fd as INT32_MAX
+    instead, which agrees wherever la stays below INT32_MAX: K1's domain,
+    which last-ancestor indexes never leave."""
     _check_member_ss(la, fd, member)
     if la.device.type == "cpu":
         return member_ss_counts_plain(la, fd, member)
@@ -159,7 +166,7 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
     if P > MEMBER_SS_MAX_P:
         raise ValueError(
             f"member_ss_counts: P={P} exceeds {MEMBER_SS_MAX_P}, the largest "
-            "peer axis whose shared-memory tiles fit one block"
+            "peer axis the kernel's float32 counters hold exactly"
         )
     out = torch.empty((S, W, W), dtype=torch.int32, device=la.device)
     if W == 0 or S == 0:
@@ -184,7 +191,7 @@ member_ss_counts.launches = 0
 # K2: the strongly-see matrix of the DAG pipeline (csrc/strongly_see.cu)
 # =============================================================================
 
-#: largest peer axis whose two [32, P + 1] int32 tiles fit one block
+#: largest peer axis, as for K1
 STRONGLY_SEE_MAX_P = MEMBER_SS_MAX_P
 #: rows of la the plain version compares at once, bounding its
 #: [rows, E, P] intermediate
@@ -222,8 +229,8 @@ def _check_strongly_see(la, fd) -> None:
 def strongly_see(la: torch.Tensor, fd: torch.Tensor,
                  super_majority: int) -> torch.Tensor:
     """K2. bool [E, E] strongly-see matrix from int32 [E, P] coordinates,
-    or [B, E, E] from a batch [B, E, P]. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    or [B, E, E] from a batch [B, E, P], exact for every int32 value. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     _check_strongly_see(la, fd)
     sm = int(super_majority)
     if la.device.type == "cpu":
@@ -237,7 +244,7 @@ def strongly_see(la: torch.Tensor, fd: torch.Tensor,
     if P > STRONGLY_SEE_MAX_P:
         raise ValueError(
             f"strongly_see: P={P} exceeds {STRONGLY_SEE_MAX_P}, the largest "
-            "peer axis whose shared-memory tiles fit one block"
+            "peer axis the kernel's float32 counters hold exactly"
         )
     if B > 65535:
         raise ValueError(f"strongly_see: batch {B} exceeds the grid's 65535")
@@ -257,6 +264,22 @@ def strongly_see(la: torch.Tensor, fd: torch.Tensor,
 
 
 strongly_see.launches = 0
+
+
+def member_ss_tile(W: int, S: int) -> int:
+    """Side of the output tile (32 or 128) K1 takes at (W, S); builds the
+    library if needed."""
+    if _lib is None:
+        build()
+    return _lib.bt_member_ss_tile(W, S)
+
+
+def strongly_see_tile(E: int, B: int) -> int:
+    """Side of the output tile (32 or 128) K2 takes at (E, B); builds the
+    library if needed."""
+    if _lib is None:
+        build()
+    return _lib.bt_strongly_see_tile(E, B)
 
 
 def reset_launch_counts() -> None:

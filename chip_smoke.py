@@ -10,9 +10,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device and build: the card, its power limit, the kernel library (K1 and
    K2, built from csrc/) and native crypto builds, the host-crypto path;
-2. every kernel against its plain PyTorch version on the card, bit for bit,
-   with its time, its plain version's time and its bound: K1 at the live
-   sweep's shapes, K2 at the DAG pipeline's, single and batched;
+2. the launch floor (an empty kernel's device time), then every kernel
+   against its plain PyTorch version on the card, bit for bit, on random
+   coordinates and on coordinates at the edges of int32 (per-peer bases up
+   to 2^31 - 2^12, INT32_MIN and INT32_MAX, ties, both sentinels), with its
+   time, its plain version's time, its bound and its share of the bound:
+   K1 at the live sweep's shapes, K2 at the DAG pipeline's, single and
+   batched;
 3. the live offload at 16 validators: a seeded signed gossip stream
    replayed through the port's Hashgraph in syncs of 64 events with a flush
    after each — host oracle, TensorConsensus at its defaults, and with
@@ -39,6 +43,12 @@ For each live path, K1 is also held against its plain version, and timed,
 at the shape that path's sweeps gave it most often. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --ab dist/old dist/new dist/new dist/old
+
+runs phase 2's timings only, in each given checkout of the repo in turn
+(each builds its own kernels in a fresh process), and exits: two commits
+compared on one card.
 """
 
 from __future__ import annotations
@@ -73,9 +83,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 # (W, P, S): the smallest witness bucket, a ragged shape, and the live
-# buckets of 16-validator (P = 16) and 64-validator (P = 64, S = 2) windows.
+# buckets of 16-validator (P = 16) and 64-validator (P = 64, S = 1 or 2)
+# windows.
 K1_SHAPES = [(16, 4, 1), (37, 13, 3), (128, 16, 1), (256, 16, 1),
-             (256, 64, 2), (512, 64, 2), (1024, 64, 2)]
+             (256, 64, 1), (256, 64, 2), (512, 64, 2), (1024, 64, 2)]
 # K2 (B, E, P): ragged and full single windows up to the pipeline's largest
 # (4096 events at 64 validators), the 16-validator stream's window (4096,
 # 16), bench.py's window (512, 16), and a batch of 8 of those
@@ -112,6 +123,14 @@ def time_on_device(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def launch_floor_ms() -> float:
+    """Device ms of an empty kernel (``torch.cuda._sleep(0)``), timed as the
+    kernels are: the floor under every kernel time."""
+    import torch
+
+    return time_on_device(lambda: torch.cuda._sleep(0))
+
+
 def k1_bound_ms(W: int, P: int, S: int):
     """Least time for K1's work on an H100 SXM: each input read once and
     the output written once at HBM rate, or S·W²·P compare-adds (two 32-bit
@@ -137,7 +156,99 @@ def k1_inputs(W: int, P: int, S: int, seed: int):
     return tuple(torch.from_numpy(a).cuda() for a in (la, fd, member))
 
 
+# per-peer coordinate bases at the edges of int32 (live coordinates are
+# absolute sequence numbers, unbounded over a node's life), and values far
+# from every base, so that la - fd overflows int32
+EDGE_BASES = (0, 2**24 - 3, 2**31 - 2**12, 2**12 - 2**31)
+EDGE_FAR = (-2**31, -2**31 + 1, -1, 0, 2**31 - 2**12, 2**31 - 2, 2**31 - 1)
+
+
+def edge_coordinates(shape, seed: int, la_below_max: bool = False):
+    """numpy int32 la and fd of ``shape`` ([..., n, P]) at the edges of
+    int32: each peer gets a base from EDGE_BASES and la, fd lie within 3 of
+    it (frequent ties); 5% of la and of fd are EDGE_FAR values, and the
+    sentinels la = -1 (10%) and fd = INT32_MAX (20%) are mixed in. With
+    ``la_below_max``, la stays below INT32_MAX (K1's domain). The tests
+    of the port use the same values."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    base = np.array(EDGE_BASES, dtype=np.int64)[
+        rng.randint(len(EDGE_BASES), size=shape[-1])]
+    far = np.array(EDGE_FAR, dtype=np.int64)
+    la = base + rng.randint(-3, 4, size=shape)
+    fd = base + rng.randint(-3, 4, size=shape)
+    for a in (la, fd):
+        pick = rng.rand(*shape) < 0.05
+        a[pick] = far[rng.randint(len(far), size=int(pick.sum()))]
+    la[rng.rand(*shape) < 0.1] = -1
+    fd[rng.rand(*shape) < 0.2] = 2**31 - 1
+    if la_below_max:
+        la[la == 2**31 - 1] = 2**31 - 2
+    return la.astype(np.int32), fd.astype(np.int32)
+
+
+def k1_edge_inputs(W: int, P: int, S: int, seed: int):
+    """numpy la, fd and member for K1 on edge-value coordinates, la below
+    INT32_MAX."""
+    import numpy as np
+
+    la, fd = edge_coordinates((W, P), seed, la_below_max=True)
+    member = np.random.RandomState(seed + 1).rand(S, P) < 0.7
+    return la, fd, member
+
+
+def edge_super_majority(la, fd) -> int:
+    """A threshold at the median count of the first 256 rows of ``la``
+    against the first 256 of ``fd``, so that counts of exactly sm - 1 and
+    sm both occur."""
+    import numpy as np
+
+    counts = (la[..., :256, None, :].astype(np.int64)
+              >= fd[..., None, :256, :]).sum(-1)
+    return max(1, int(np.median(counts)))
+
+
+def k1_edge_check(shape, seed: int) -> None:
+    """K1 equal to its plain version on edge-value coordinates."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    la, fd, member = (torch.from_numpy(a).cuda()
+                      for a in k1_edge_inputs(*shape, seed))
+    got = kernels.member_ss_counts(la, fd, member)
+    want = kernels.member_ss_counts_plain(la, fd, member)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K1 {shape} edge values: {bad} counts differ "
+                             "from plain")
+
+
+def k2_edge_check(shape, seed: int) -> None:
+    """K2 equal to its plain version on edge-value coordinates, at the
+    threshold ``edge_super_majority`` picks."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    B, E, P = shape
+    la_np, fd_np = edge_coordinates((B, E, P) if B > 1 else (E, P), seed)
+    sm = edge_super_majority(la_np, fd_np)
+    la, fd = torch.from_numpy(la_np).cuda(), torch.from_numpy(fd_np).cuda()
+    got = kernels.strongly_see(la, fd, sm)
+    want = kernels.strongly_see_plain(la, fd, sm)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K2 {shape} edge values: {bad} entries differ "
+                             "from plain")
+
+
 def check_k1(shape, seed: int) -> dict:
+    """K1 equal to its plain version on random and on edge-value
+    coordinates, and timed on the random ones."""
     import torch
 
     from babble_tpu_torch.ops import kernels
@@ -151,6 +262,7 @@ def check_k1(shape, seed: int) -> dict:
         bad = int((got != want).sum())
         raise AssertionError(f"K1 {shape}: {bad} counts differ from plain")
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    k1_edge_check(shape, seed)
     ms = time_on_device(lambda: kernels.member_ss_counts(la, fd, member))
     plain_ms = time_on_device(
         lambda: kernels.member_ss_counts_plain(la, fd, member), reps=20
@@ -188,6 +300,8 @@ def k2_inputs(B: int, E: int, P: int, seed: int):
 
 
 def check_k2(shape, seed: int) -> dict:
+    """K2 equal to its plain version on random and on edge-value
+    coordinates, and timed on the random ones."""
     import torch
 
     from babble_tpu_torch.ops import kernels
@@ -202,6 +316,7 @@ def check_k2(shape, seed: int) -> dict:
         bad = int((got != want).sum())
         raise AssertionError(f"K2 {shape}: {bad} entries differ from plain")
     err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    k2_edge_check(shape, seed)
     ms = time_on_device(lambda: kernels.strongly_see(la, fd, sm))
     plain_ms = time_on_device(
         lambda: kernels.strongly_see_plain(la, fd, sm), reps=20
@@ -786,9 +901,64 @@ def k2_row(row: dict, launches: int, by_phase: dict) -> dict:
     }
 
 
+# Run in a tree of the repo (this one or an earlier commit's) by
+# ``kernel_ab``: phase 2's times there, through functions every version of
+# this script has.
+_AB_CHILD = """
+import json, sys, torch
+import chip_smoke as c
+from babble_tpu_torch.ops import kernels
+kernels.build()
+k1, k2 = json.loads(sys.argv[1])
+print("AB " + json.dumps({
+    "floor_ms": c.time_on_device(lambda: torch.cuda._sleep(0)),
+    "k1": [c.check_k1(tuple(s), seed=1 + i)["ms"] for i, s in enumerate(k1)],
+    "k2": [c.check_k2(tuple(s), seed=51 + i)["ms"] for i, s in enumerate(k2)],
+}))
+"""
+
+
+def kernel_ab(trees) -> None:
+    """Phase 2's kernel times in each tree of ``trees`` (checkouts of this
+    repo, each with its own build), one fresh process per tree, in the
+    order given (old, new, new, old compares two commits on one card);
+    prints one line per tree and shape, and a table of the per-tree
+    medians."""
+    import os
+    import subprocess
+
+    shapes = json.dumps([K1_SHAPES, K2_SHAPES])
+    runs = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", _AB_CHILD, shapes],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
+        if proc.returncode != 0 or not line:
+            raise AssertionError(f"A/B run in {tree} exit {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}")
+        runs.append((os.path.abspath(tree), json.loads(line[0][3:])))
+        log(f"[ab] {tree}: {line[0][3:]}")
+    by_tree = {}
+    for tree, rec in runs:
+        by_tree.setdefault(tree, []).append(rec)
+    names = ([("K1", s) for s in K1_SHAPES] + [("K2", s) for s in K2_SHAPES])
+    for tree, recs in by_tree.items():
+        floor = statistics.median(r["floor_ms"] for r in recs)
+        log(f"[ab] {tree}: {len(recs)} runs, launch floor {floor:.5f} ms")
+        for k, (kind, shape) in enumerate(names):
+            key, idx = ("k1", k) if kind == "K1" else ("k2", k - len(K1_SHAPES))
+            ms = [r[key][idx] for r in recs]
+            log(f"[ab] {tree} {kind} {shape}: median {statistics.median(ms):.5f}"
+                f" ms of {[round(m, 5) for m in ms]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--ab", nargs="+", metavar="TREE",
+                    help="only time phase 2's kernels in each of these "
+                    "checkouts in turn (e.g. old new new old) and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -805,6 +975,9 @@ def main(argv=None) -> int:
     dev = describe("cuda")
     log(f"device: {dev['kind']} x{dev['count']}; nvidia-smi: "
         f"{dev['name_power']}")
+    if args.ab:
+        kernel_ab(args.ab)
+        return 0
     t0 = time.perf_counter()
     so = kernels.build()
     log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}\n"
@@ -815,18 +988,25 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s)")
 
     # Phase 2: kernels against their plain versions on the card
+    floor_ms = launch_floor_ms()
+    log(f"launch floor: {floor_ms:.5f} ms (an empty kernel, timed as the "
+        "kernels are)")
     for i, shape in enumerate(K1_SHAPES):
         row = check_k1(shape, seed=args.seed + i)
-        log(f"K1 {shape}: equal to plain; kernel {row['ms']:.5f} ms, plain "
-            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
-            f"({row['bound_by']})")
+        log(f"K1 {shape}: equal to plain on random and edge values; kernel "
+            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.3g} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound, tile "
+            f"{kernels.member_ss_tile(shape[0], shape[2])}")
     k2_checked = {}
     for i, shape in enumerate(K2_SHAPES):
         row = check_k2(shape, seed=args.seed + 50 + i)
         k2_checked[shape] = row
-        log(f"K2 (B, E, P) {shape}: equal to plain; kernel {row['ms']:.5f} "
-            f"ms, plain {row['plain_ms']:.5f} ms, bound "
-            f"{row['bound_ms']:.3g} ms ({row['bound_by']})")
+        log(f"K2 (B, E, P) {shape}: equal to plain on random and edge "
+            f"values; kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} "
+            f"ms, bound {row['bound_ms']:.3g} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound, tile "
+            f"{kernels.strongly_see_tile(shape[1], shape[0])}")
 
     # Phase 3: 16 validators
     t0 = time.perf_counter()

@@ -23,10 +23,11 @@ from babble_tpu_torch.ops.intdot import vote_matmul
 from babble_tpu_torch.parallel import batch_of_snapshots, batched_pipeline
 from babble_tpu_torch.peers import Peer, PeerSet
 
+from chip_smoke import edge_coordinates, edge_super_majority, k1_edge_inputs
+
 INT32_MAX = np.int32(2**31 - 1)
 
 pytestmark = pytest.mark.cuda
-
 
 @pytest.fixture
 def card():
@@ -45,14 +46,26 @@ def _k1_inputs(W, P, S, seed):
     return la, fd, member
 
 
-@pytest.mark.parametrize("W,P,S", [
+# K1 shapes: the live buckets and ragged ones; W off every multiple of the
+# 32 and 128 tiles, P = 1, P off every multiple of the 16-peer chunk, P at
+# the stated limit, S = 3 (two slot groups), and W large enough for the
+# 128 tile with one and with two slots per block
+K1_CARD_SHAPES = [
     (16, 4, 1), (37, 13, 3), (128, 16, 1), (256, 16, 1), (512, 64, 2),
-    (1024, 64, 2), (33, 900, 1),
-])
-def test_k1_kernel_equals_plain(card, W, P, S):
-    """The kernel equals its plain version, bit for bit, and counts one
-    launch; the plain version on the card equals it on the CPU."""
-    arrays = _k1_inputs(W, P, S, seed=W + P + S)
+    (1024, 64, 2), (33, 900, 1), (1, 1, 1), (70, 17, 2), (200, 33, 3),
+    (2100, 5, 1), (2100, 7, 2), (2, kernels.MEMBER_SS_MAX_P, 1),
+]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("W,P,S", K1_CARD_SHAPES)
+def test_k1_kernel_equals_plain(card, W, P, S, values):
+    """The kernel equals its plain version, bit for bit, on random
+    coordinates and on coordinates at the int32 edges (la below INT32_MAX,
+    K1's domain), and counts one launch; the plain version on the card
+    equals it on the CPU."""
+    make = _k1_inputs if values == "random" else k1_edge_inputs
+    arrays = make(W, P, S, seed=W + P + S)
     la, fd, member = (torch.from_numpy(a).to(card) for a in arrays)
     kernels.reset_launch_counts()
     got = kernels.member_ss_counts(la, fd, member)
@@ -172,17 +185,31 @@ def _k2_inputs(shape, seed):
     return la, fd
 
 
-@pytest.mark.parametrize("shape", [
+# K2 shapes: the DAG path's four, ragged ones, E off every multiple of the
+# 32 and 128 tiles with either tile (single and batched), P = 1, P off
+# every multiple of the 16-peer chunk, P at the stated limit, B > 1
+K2_CARD_SHAPES = [
     (1, 1), (33, 5), (64, 4), (100, 6), (512, 16), (1000, 40), (4096, 64),
-    (65, 900), (3, 37, 7), (8, 512, 16),
-])
-def test_k2_kernel_equals_plain(card, shape):
+    (65, 900), (3, 37, 7), (8, 512, 16), (4096, 16), (130, 1), (4100, 17),
+    (4, 1100, 5), (2, kernels.STRONGLY_SEE_MAX_P),
+]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("shape", K2_CARD_SHAPES)
+def test_k2_kernel_equals_plain(card, shape, values):
     """K2 equals its plain version, bit for bit, single and batched, at
-    ragged and full shapes, and counts one launch; the plain version on the
-    card equals it on the CPU."""
-    la_np, fd_np = _k2_inputs(shape, seed=sum(shape))
+    ragged and full shapes, on random coordinates and on coordinates at the
+    int32 edges (at a threshold that counts of sm - 1 and sm straddle), and
+    counts one launch; the plain version on the card equals it on the
+    CPU."""
+    if values == "random":
+        la_np, fd_np = _k2_inputs(shape, seed=sum(shape))
+        sm = 2 * shape[-1] // 3 + 1
+    else:
+        la_np, fd_np = edge_coordinates(shape, seed=sum(shape))
+        sm = edge_super_majority(la_np, fd_np)
     la, fd = torch.from_numpy(la_np).to(card), torch.from_numpy(fd_np).to(card)
-    sm = 2 * shape[-1] // 3 + 1
     kernels.reset_launch_counts()
     got = kernels.strongly_see(la, fd, sm)
     torch.cuda.synchronize()
@@ -195,6 +222,17 @@ def test_k2_kernel_equals_plain(card, shape):
         cpu = kernels.strongly_see(torch.from_numpy(la_np),
                                    torch.from_numpy(fd_np), sm)
         assert torch.equal(got.cpu(), cpu)
+
+
+def test_card_shapes_take_both_tiles(card):
+    """The shapes above launch both tile sizes of the shared tile loop,
+    for K1 with one and with two slots per block."""
+    k1 = {(kernels.member_ss_tile(W, S), min(S, 2))
+          for W, _P, S in K1_CARD_SHAPES}
+    assert {(32, 1), (32, 2), (128, 1), (128, 2)} <= k1
+    k2 = {kernels.strongly_see_tile(s[-2], s[0] if len(s) == 3 else 1)
+          for s in K2_CARD_SHAPES}
+    assert k2 == {32, 128}
 
 
 def test_k2_refuses_what_it_cannot_take(card):

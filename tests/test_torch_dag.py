@@ -39,6 +39,7 @@ from babble_tpu_torch.ops import kernels
 from babble_tpu_torch.parallel import pipeline as ppipeline
 
 from tests.test_ops_dag import BUILDERS
+from chip_smoke import edge_coordinates, edge_super_majority
 from tests.test_torch_voting import (
     port_events,
     port_hashgraph_like,
@@ -48,8 +49,11 @@ from tests.test_accel import _ordered_events
 
 CPU = torch.device("cpu")
 INT32_MAX = np.int32(2**31 - 1)
+INT32_MIN = np.int32(-2**31)
 
 SS_SHAPES = [(64, 4), (100, 6), (128, 8), (256, 16), (512, 40)]
+# edge-value shapes: one event, P = 1, P off every multiple of 8 and 16
+EDGE_SS_SHAPES = [(1, 1), (33, 5), (65, 1), (100, 17), (130, 40)]
 SYNTHETIC = [(4, 64), (7, 100), (16, 256)]
 
 
@@ -127,6 +131,49 @@ def test_strongly_see_empty_and_bad_inputs():
         kernels.strongly_see(la[0], fd[0], 3)
     with pytest.raises(ValueError):
         kernels.strongly_see(la[None, None], fd[None, None], 3)
+
+
+def _counts(la, fd):
+    return (la[..., :, None, :].astype(np.int64)
+            >= fd[..., None, :, :]).sum(-1)
+
+
+@pytest.mark.parametrize("E,P", EDGE_SS_SHAPES)
+def test_strongly_see_edge_values_match_pallas(E, P):
+    """Coordinates at the edges of int32 (per-peer bases 0, 2^24 - 3,
+    2^31 - 2^12 and 2^12 - 2^31; INT32_MIN and INT32_MAX on either side, so
+    la - fd overflows; ties la == fd; both sentinels), at a threshold with
+    counts of exactly sm - 1 and sm: the plain version equals the Pallas
+    kernel and the jnp branch bit for bit."""
+    la, fd = edge_coordinates((E, P), seed=E + 7 * P)
+    sm = edge_super_majority(la, fd)
+    counts = _counts(la, fd)
+    if E > 1:
+        assert (counts == sm).any() and (counts == sm - 1).any()
+        assert (la == fd).any()
+    pallas = np.asarray(strongly_see_pallas(jnp.asarray(la), jnp.asarray(fd),
+                                            sm, interpret=True))
+    np.testing.assert_array_equal(pallas, counts >= sm)
+    np.testing.assert_array_equal(pallas, np.asarray(
+        jdag.strongly_see_matrix(jnp.asarray(la), jnp.asarray(fd), sm)))
+    got = kernels.strongly_see_plain(torch.from_numpy(la),
+                                     torch.from_numpy(fd), sm)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+
+
+def test_strongly_see_edge_values_batched_match_pallas():
+    """A batch of three edge-value windows equals the Pallas kernel window
+    by window, at thresholds sm - 1, sm and sm + 1."""
+    la, fd = edge_coordinates((3, 37, 7), seed=11)
+    sm = edge_super_majority(la, fd)
+    assert la.min() == INT32_MIN and la.max() == INT32_MAX
+    for t in (sm - 1, sm, sm + 1):
+        got = kernels.strongly_see(torch.from_numpy(la),
+                                   torch.from_numpy(fd), t)
+        for b in range(3):
+            want = np.asarray(strongly_see_pallas(
+                jnp.asarray(la[b]), jnp.asarray(fd[b]), t, interpret=True))
+            np.testing.assert_array_equal(got[b].numpy(), want)
 
 
 # -- stages -------------------------------------------------------------------

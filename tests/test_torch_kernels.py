@@ -17,9 +17,14 @@ import torch
 from babble_tpu.ops.pallas_kernels import member_ss_counts_pallas
 from babble_tpu_torch.ops import kernels
 
+from chip_smoke import k1_edge_inputs
+
 INT32_MAX = np.int32(2**31 - 1)
 
 SHAPES = [(16, 4, 1), (32, 13, 2), (64, 40, 4), (128, 21, 3), (256, 16, 1)]
+# edge-value shapes: P = 1, P off every multiple of 8 and 16, S up to 3
+EDGE_SHAPES = [(16, 4, 1), (37, 13, 3), (64, 1, 2), (70, 17, 2),
+               (128, 33, 1)]
 
 
 def _inputs(W, P, S, seed=7):
@@ -85,3 +90,43 @@ def test_member_ss_counts_cpu_takes_plain_version_without_launch():
     assert kernels.launch_counts() == {"member_ss_counts": 0,
                                       "strongly_see": 0}
 
+
+
+def _pallas(la, fd, member):
+    return np.asarray(member_ss_counts_pallas(
+        jnp.asarray(la), jnp.asarray(fd), jnp.asarray(member),
+        interpret=True,
+    ))
+
+
+@pytest.mark.parametrize("W,P,S", EDGE_SHAPES)
+def test_member_ss_counts_edge_values_match_pallas(W, P, S):
+    """Coordinates near the int32 edges (bases 0, 2^24 - 3, 2^31 - 2^12
+    and 2^12 - 2^31, INT32_MIN, ties la == fd) with both sentinels, la
+    below INT32_MAX: the plain version, and the wrapper on the CPU, equal
+    the Pallas kernel bit for bit."""
+    la, fd, member = k1_edge_inputs(W, P, S, seed=W * P + S)
+    assert la.max() < INT32_MAX and (la == fd).any()
+    assert (la == -1).any() and (fd == INT32_MAX).any()
+    want = _pallas(la, fd, member)
+    t = [torch.from_numpy(a) for a in (la, fd, member)]
+    np.testing.assert_array_equal(
+        kernels.member_ss_counts_plain(*t).numpy(), want)
+    np.testing.assert_array_equal(kernels.member_ss_counts(*t).numpy(), want)
+
+
+def test_member_ss_counts_domain_is_la_below_int32_max():
+    """K1's stated domain: the Pallas wrapper folds membership into fd as
+    INT32_MAX, so a non-member peer still counts where la == INT32_MAX;
+    the plain version multiplies by member and does not. Below INT32_MAX
+    the two agree."""
+    la = np.array([[INT32_MAX, 5]], dtype=np.int32)
+    fd = np.array([[INT32_MAX, 5]], dtype=np.int32)
+    member = np.array([[False, True]])
+    t = [torch.from_numpy(a) for a in (la, fd, member)]
+    assert _pallas(la, fd, member).tolist() == [[[2]]]
+    assert kernels.member_ss_counts_plain(*t).tolist() == [[[1]]]
+    la[0, 0] = INT32_MAX - 1
+    t[0] = torch.from_numpy(la)
+    assert _pallas(la, fd, member).tolist() == [[[1]]]
+    assert kernels.member_ss_counts_plain(*t).tolist() == [[[1]]]
