@@ -53,6 +53,7 @@ from babble_tpu_torch.hashgraph.internal_transaction import (
     TransactionType,
 )
 from babble_tpu_torch.hashgraph.round_info import RoundEvent, RoundInfo
+from babble_tpu_torch.hashgraph.persistent_store import PersistentStore
 from babble_tpu_torch.hashgraph.store import InmemStore, Store
 
 __all__ = [
@@ -74,6 +75,7 @@ __all__ = [
     "PeerSetCache",
     "PendingRound",
     "PendingRoundsCache",
+    "PersistentStore",
     "ROOT_DEPTH",
     "Root",
     "RoundEvent",

@@ -12,16 +12,25 @@ Two modes:
 - **Pipelined** (the default on a CUDA card): each flush first applies the
   PREVIOUS sweep's results, then snapshots and launches the next sweep on a
   side CUDA stream, whose output is copied without blocking into pinned
-  host memory behind a recorded CUDA event. The next flush waits on that
-  event and applies. Applying a snapshot's decisions after later inserts is
-  the hashgraph's incremental == batch property, so consensus output is
+  host memory behind a recorded CUDA event. A flush polls that event and
+  never waits on it: one that finds the sweep still running defers to the
+  next flush. Applying a snapshot's decisions after later inserts is the
+  hashgraph's incremental == batch property, so consensus output is
   identical; only decision latency shifts by one flush.
 
+Admission control: co-located nodes (threads of one process, or processes
+sharing ``BABBLE_ACCEL_SLOT_DIR``) share one card, and at most
+``_MAX_INFLIGHT`` pipelined sweeps are in flight on it at once. A flush
+that finds every slot taken lets the oracle carry it and counts in
+``contended`` — the small-window economics of ``min_window``, not a fault.
+
 A store eviction (``StoreError``) inside a sweep is consensus semantics:
-the oracle carries that flush and it counts in ``fallbacks``. Every other
-failure — a kernel launch error, any CUDA error, a device OOM — propagates
-out of ``flush``: on a card the kernels are the path, and a broken one is
-never turned into host consensus. The kernels are built when a CUDA
+the oracle carries that flush and it counts in ``fallbacks``, as does an
+admission slot file that cannot be opened. Every other failure — a kernel
+launch error, any CUDA error, a device OOM, a sweep still not done
+``readback_timeout_s`` after it was enqueued — propagates out of
+``flush``: on a card the kernels are the path, and a broken one is never
+turned into host consensus. The kernels are built when a CUDA
 TensorConsensus is constructed, so a build failure raises at start-up.
 """
 
@@ -29,11 +38,11 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from collections import Counter
 from typing import Optional
 
-import numpy as np
 import torch
 
 from babble_tpu_torch.common.breaker import CircuitBreaker
@@ -44,40 +53,161 @@ from babble_tpu_torch.ops.device import DeviceLike, resolve_device
 logger = logging.getLogger("babble_tpu_torch.hashgraph.accel")
 
 
-def _breaker_from_env() -> CircuitBreaker:
+def _breaker_from_env(clock=None) -> CircuitBreaker:
     """Device-path circuit breaker with env-tunable parameters: open after
     BABBLE_ACCEL_BREAKER_N failures within BABBLE_ACCEL_BREAKER_WINDOW_S
     seconds, refuse the device for BABBLE_ACCEL_BREAKER_COOLDOWN_S, then
-    probe one sweep to half-open/re-close."""
+    probe one sweep to half-open/re-close. ``clock`` (a common.clock.Clock
+    or bare monotonic callable) makes the trip window and cooldown run on
+    the node's time source — virtual under the sim engine."""
     return CircuitBreaker(
         threshold=max(1, int(os.environ.get("BABBLE_ACCEL_BREAKER_N", "5"))),
         window_s=float(os.environ.get("BABBLE_ACCEL_BREAKER_WINDOW_S", "30")),
         cooldown_s=float(
             os.environ.get("BABBLE_ACCEL_BREAKER_COOLDOWN_S", "15")
         ),
+        **({"clock": clock} if clock is not None else {}),
     )
+
+
+# Sweep admission control. Co-located nodes (multi-validator hosts, a
+# threaded cluster, tests) share ONE card; without a cap their sweeps
+# convoy on it and per-sweep latency balloons. Flushes that lose the race
+# ride the oracle, the economics min_window already encodes.
+#
+# Two scopes:
+# - in-process (default): a plain semaphore covers threads in one
+#   interpreter;
+# - cross-process (BABBLE_ACCEL_SLOT_DIR): flock-guarded slot files, so
+#   independent node PROCESSES on one host coordinate too — per-process
+#   semaphores can't see each other, and 4 processes x 2 slots would put
+#   8 sweeps in flight on one card.
+_MAX_INFLIGHT = 2
+
+
+class _FlockSlots:
+    """Semaphore-shaped admission slots shared ACROSS processes via
+    non-blocking flock on a fixed set of slot files. Locks die with the
+    process, so a crashed node can never leak a slot."""
+
+    def __init__(self, dir_path: str, n: int):
+        os.makedirs(dir_path, exist_ok=True)
+        self._paths = [
+            os.path.join(dir_path, f"sweep-slot-{i}.lock") for i in range(n)
+        ]
+        self._lock = threading.Lock()
+        self._held: list = []  # (path, fd) LIFO
+
+    def acquire(self, blocking: bool = False) -> bool:
+        import fcntl
+
+        if blocking:
+            raise ValueError("admission slots are try-acquire only")
+        with self._lock:
+            held_paths = {p for p, _ in self._held}
+            for p in self._paths:
+                if p in held_paths:
+                    continue
+                fd = os.open(p, os.O_CREAT | os.O_RDWR, 0o644)
+                try:
+                    fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                except OSError:
+                    os.close(fd)
+                    continue
+                self._held.append((p, fd))
+                return True
+            return False
+
+    def release(self) -> None:
+        import fcntl
+
+        with self._lock:
+            if not self._held:
+                return
+            _, fd = self._held.pop()
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
+_INFLIGHT_SLOTS = None
+_slots_lock = threading.Lock()
+# The process's sweeps that hold a slot. A slot is freed when its node's
+# next flush finds the sweep landed; a node that stops flushing (shut down,
+# or out of syncs) must not keep it, so a launch that finds every slot
+# taken first frees those of sweeps that have landed.
+_HOLDERS: set = set()
+
+
+def _inflight_slots():
+    """The process-wide admission slots, ``_MAX_INFLIGHT`` of them, made
+    on first use: flock files in BABBLE_ACCEL_SLOT_DIR when it is set,
+    else a semaphore."""
+    global _INFLIGHT_SLOTS
+    if _INFLIGHT_SLOTS is None:
+        with _slots_lock:
+            if _INFLIGHT_SLOTS is None:
+                slot_dir = os.environ.get("BABBLE_ACCEL_SLOT_DIR")
+                if slot_dir:
+                    _INFLIGHT_SLOTS = _FlockSlots(slot_dir, _MAX_INFLIGHT)
+                else:
+                    _INFLIGHT_SLOTS = threading.Semaphore(_MAX_INFLIGHT)
+    return _INFLIGHT_SLOTS
+
+
+def _reap_landed() -> None:
+    """Free the slots of sweeps that have landed but whose node has not
+    flushed since."""
+    with _slots_lock:
+        holders = list(_HOLDERS)
+    for inf in holders:
+        if inf.landed():
+            inf.release_slot()
 
 
 class _Inflight:
     """A launched sweep: its window, its output (a pinned host buffer being
-    filled behind ``done`` on a card; the finished output on the CPU), and
-    the events that time it on the device."""
+    filled behind ``done`` on a card; the finished output on the CPU), the
+    events that time it on the device, and the admission slot it holds
+    until the device is done with it."""
 
-    __slots__ = ("win", "host", "done", "start")
+    __slots__ = ("win", "host", "done", "start", "t_enqueued", "slots",
+                 "t_acquired", "t_released", "perf")
 
-    def __init__(self, win, host, done, start):
+    def __init__(self, win, host, done, start, t_enqueued: float, perf):
         self.win = win
         self.host = host
         self.done = done  # torch.cuda.Event, or None on the CPU
         self.start = start  # torch.cuda.Event recorded before the upload
+        self.t_enqueued = t_enqueued  # the host has handed the card all of it
+        self.perf = perf
+        self.slots = None
+        self.t_acquired = self.t_released = 0.0
 
-    def wait(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
+    def hold(self, slots, t_acquired: float) -> None:
+        self.slots, self.t_acquired = slots, t_acquired
+        with _slots_lock:
+            _HOLDERS.add(self)
+
+    def landed(self) -> bool:
+        """True once the output is on the host. Never blocks; a CUDA error
+        raises here."""
+        return self.done is None or self.done.query()
+
+    def release_slot(self) -> None:
+        """Free the admission slot, once, whoever calls first."""
+        with _slots_lock:
+            slots, self.slots = self.slots, None
+            if slots is None:
+                return
+            _HOLDERS.discard(self)
+            self.t_released = self.perf()
+        slots.release()
+
+    def slot_seconds(self) -> float:
+        return max(0.0, self.t_released - self.t_acquired)
 
     def device_seconds(self) -> Optional[float]:
-        """Upload + sweep + copy-out time on the device (after wait())."""
+        """Upload + sweep + copy-out time on the device (once landed)."""
         if self.done is None:
             return None
         return self.start.elapsed_time(self.done) / 1000.0
@@ -86,16 +216,20 @@ class _Inflight:
 class TensorConsensus:
     """The port's device offload, attached as ``hg.accel``. The hashgraph
     calls ``should_sweep``, ``busy``, ``flush`` and ``invalidate``; nodes
-    read ``stats()`` and the counters ``sweeps``, ``fallbacks``,
-    ``small_windows`` and ``stage_s``. ``device`` defaults to ``cuda`` and
-    raises without a card."""
+    read ``stats()`` and the counters the node telemetry scrapes
+    (``sweeps``, ``fallbacks``, ``stale_drops`` and the rest below).
+    ``device`` defaults to ``cuda`` and raises without a card. ``clock``
+    (a common.clock.Clock) times the breaker and the stages; ``owner``
+    names the validator in the offload's log lines."""
 
     def __init__(self, device: DeviceLike = None, sweep_events: int = 256,
                  min_window: int | None = None,
                  pipeline: bool | None = None,
                  mesh=None,
                  batcher: bool | None = None,
-                 resident: bool | None = None):
+                 resident: bool | None = None,
+                 clock=None,
+                 owner: str | None = None):
         for name, val in (("mesh", mesh is not None), ("batcher", batcher),
                           ("resident", resident)):
             if val:
@@ -104,6 +238,9 @@ class TensorConsensus:
                     "port's queue in ROADMAP.md"
                 )
         self.device = resolve_device(device)
+        self.owner = owner
+        self._perf = (clock.perf_counter if clock is not None
+                      else time.perf_counter)
         self._stream = None
         if self.device.type == "cuda":
             kernels.build()  # a build failure raises here, at start-up
@@ -117,20 +254,41 @@ class TensorConsensus:
         # (the JAX package's accelerator default of 192, its host default
         # of 256). 0 forces the device path (tests).
         if min_window is None:
-            min_window = 192 if self.device.type == "cuda" else 256
+            env = os.environ.get("BABBLE_ACCEL_MIN_WINDOW")
+            if env is not None:
+                min_window = int(env)
+            else:
+                min_window = 192 if self.device.type == "cuda" else 256
         self.min_window = min_window
         # Pipelined sweeps hide the readback behind the next sync; on by
-        # default on a card.
-        self.pipeline = (self.device.type == "cuda" if pipeline is None
-                         else pipeline)
+        # default on a card, BABBLE_ACCEL_PIPELINE=1/0 forces either way.
+        if pipeline is None:
+            env = os.environ.get("BABBLE_ACCEL_PIPELINE")
+            pipeline = (self.device.type == "cuda" if env is None
+                        else env == "1")
+        self.pipeline = pipeline
         # A store eviction falls back to the oracle for its flush; repeated
         # ones open the breaker for a cooldown, then a probe sweep
         # re-enables the path.
-        self.breaker = _breaker_from_env()
+        self.breaker = _breaker_from_env(clock)
+        # A pipelined sweep still not done this long after the host enqueued
+        # it means a wedged card: flush raises TimeoutError.
+        self.readback_timeout_s = 30.0
         self.sweeps = 0
         self.fallbacks = 0
         self.small_windows = 0  # flushes routed to the oracle by min_window
         self.stale_drops = 0  # in-flight sweeps dropped by invalidate()
+        self.deferred = 0  # flushes that rode behind a running sweep
+        self.contended = 0  # launches skipped: card at max in-flight sweeps
+        # Mechanisms the port has not got yet (compiles, resident windows,
+        # mesh padding): the node telemetry reads them under the JAX
+        # package's names, and they stay 0 / None.
+        self.compile_waits = 0
+        self.window_state = None
+        self.rows_delta_total = 0
+        self.rows_reused_total = 0
+        self.mesh_pad_rows = 0
+        self.mesh_fallbacks = 0
         # applied sweeps per window shape bucket (W, E, P, S, R)
         self.buckets: Counter = Counter()
         self._last_snapshot_topo = -1
@@ -138,13 +296,21 @@ class TensorConsensus:
         self.total_sweep_s = 0.0
         self.last_window_events = 0
         # Per-stage rolling sums (seconds): build = host snapshot, dispatch
-        # = upload + enqueue, readback = wait for the output on the host,
-        # kernel = the sweep on the device (CUDA events on a card, the
+        # = upload + enqueue, readback = until the output is on the host (a
+        # synchronous sweep waits for it; a pipelined one counts from the
+        # end of its enqueue to the flush that finds it landed), kernel =
+        # the sweep on the device (CUDA events on a card, from the upload
+        # to the copy-out, gaps in the host's enqueue included; the
         # synchronous compute on the CPU), apply = host write-back.
         self.stage_s = {
             "build": 0.0, "dispatch": 0.0, "readback": 0.0, "kernel": 0.0,
             "apply": 0.0,
         }
+        # Of the pipelined sweeps' dispatch stage, the time the thread ran
+        # on a CPU (the rest of its wall time it waited, for the GIL or a
+        # core); and the time those sweeps held an admission slot.
+        self.dispatch_cpu_s = 0.0
+        self.slot_held_s = 0.0
         # Optional per-sample stage observer, called as obs(stage, seconds).
         self.stage_observer = None
         self._inflight: Optional[_Inflight] = None
@@ -173,9 +339,13 @@ class TensorConsensus:
 
     def invalidate(self) -> None:
         """Drop any in-flight sweep (hashgraph reset / fast-sync landing):
-        its snapshot no longer describes this store."""
-        if self._inflight is not None:
+        its snapshot no longer describes this store. Its admission slot is
+        released now."""
+        inf = self._inflight
+        if inf is not None:
             self.stale_drops += 1
+            inf.release_slot()
+            self.slot_held_s += inf.slot_seconds()
             # the dropped sweep never reports an outcome; if it was the
             # half-open probe, release the probe slot
             self.breaker.cancel()
@@ -195,8 +365,21 @@ class TensorConsensus:
             return self.sweep(hg)
 
         handled = False
-        inf, self._inflight = self._inflight, None
+        inf = self._inflight
         if inf is not None:
+            if not inf.landed():
+                age = self._perf() - inf.t_enqueued
+                if age > self.readback_timeout_s:
+                    raise TimeoutError(
+                        f"accelerated sweep of {self.owner or 'this node'} "
+                        f"not done {age:.1f} s after it was enqueued")
+                # still on the card: its decisions land at a later flush
+                self.deferred += 1
+                return True
+            self._inflight = None
+            self._stage("readback", self._perf() - inf.t_enqueued)
+            inf.release_slot()
+            self.slot_held_s += inf.slot_seconds()
             if not self._apply(hg, inf):
                 return False  # oracle carries this flush
             handled = True
@@ -214,17 +397,18 @@ class TensorConsensus:
     # -- pipelined internals -------------------------------------------------
 
     def _build(self, hg):
-        t0 = time.perf_counter()
+        t0 = self._perf()
         win = voting.build_voting_window(hg)
-        self._stage("build", time.perf_counter() - t0)
+        self._stage("build", self._perf() - t0)
         return win
 
     def _enqueue(self, win) -> _Inflight:
         """Launch the sweep without waiting for it: on a card, on the side
-        stream with a non-blocking copy into pinned host memory."""
+        stream with a non-blocking copy into pinned host memory behind a
+        recorded event; on the CPU the sweep is done when this returns."""
         if self._stream is None:
             out = voting.launch_sweep(win, self.device)
-            return _Inflight(win, out, None, None)
+            return _Inflight(win, out, None, None, self._perf(), self._perf)
         with torch.cuda.stream(self._stream):
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
@@ -233,34 +417,57 @@ class TensorConsensus:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done.record(self._stream)
-        return _Inflight(win, host, done, start)
+        return _Inflight(win, host, done, start, self._perf(), self._perf)
 
     def _launch(self, hg) -> bool:
         try:
             win = self._build(hg)
-            if win is None:
-                self.breaker.cancel()  # no device attempt to judge
-                return True  # nothing undecided
-            t_d = time.perf_counter()
-            inf = self._enqueue(win)
-            self._stage("dispatch", time.perf_counter() - t_d)
         except StoreError as err:
             self._note_fallback(err)
             return False
+        if win is None:
+            self.breaker.cancel()  # no device attempt to judge
+            return True  # nothing undecided
+        # Admission covers only device occupancy: the window build above
+        # runs slot-free so co-located nodes aren't starved during host
+        # work.
+        try:
+            slots = _inflight_slots()
+            acquired = slots.acquire(blocking=False)
+            if not acquired:
+                _reap_landed()
+                acquired = slots.acquire(blocking=False)
+        except OSError as err:
+            # a vanished slot directory or fd exhaustion degrades to the
+            # oracle, never kills the gossip path
+            self._note_fallback(err)
+            return False
+        if not acquired:
+            self.contended += 1
+            self.breaker.cancel()
+            return False
+        t_d, c_d = self._perf(), time.thread_time()
+        try:
+            inf = self._enqueue(win)
+        except BaseException:
+            slots.release()
+            raise
+        inf.hold(slots, t_d)
+        if inf.done is None:
+            inf.release_slot()  # on the CPU the sweep is done already
+        self._stage("dispatch", self._perf() - t_d)
+        self.dispatch_cpu_s += time.thread_time() - c_d
         self._inflight = inf
         self._last_snapshot_topo = hg.topological_index
         return True
 
     def _apply(self, hg, inf: _Inflight) -> bool:
         try:
-            t_r = time.perf_counter()
-            host = inf.wait()
-            t_a = time.perf_counter()
-            self._stage("readback", t_a - t_r)
-            fame, rr = voting.read_sweep(host, inf.win)
+            t_a = self._perf()
+            fame, rr = voting.read_sweep(inf.host, inf.win)
             voting.apply_fame(hg, inf.win, fame)
             voting.apply_round_received(hg, inf.win, rr)
-            t_apply = time.perf_counter() - t_a
+            t_apply = self._perf() - t_a
             kernel_s = inf.device_seconds()
         except StoreError as err:
             self._note_fallback(err)
@@ -276,27 +483,27 @@ class TensorConsensus:
     def sweep(self, hg) -> bool:
         """One blocking fused sweep. Returns False when the caller must
         fall back to the oracle pipeline."""
-        t0 = time.perf_counter()
+        t0 = self._perf()
         try:
             win = self._build(hg)
             if win is None:
                 self.breaker.cancel()  # no device attempt to judge
                 return True  # nothing undecided
-            t1 = time.perf_counter()
+            t1 = self._perf()
             out = voting.launch_sweep(win, self.device)
-            t_r = time.perf_counter()
+            t_r = self._perf()
             self._stage("dispatch", t_r - t1)
             fame, rr = voting.read_sweep(out, win)
-            t2 = time.perf_counter()
+            t2 = self._perf()
             self._stage("readback", t2 - t_r)
             self._stage("kernel", t2 - t1)
             voting.apply_fame(hg, win, fame)
             voting.apply_round_received(hg, win, rr)
-            self._stage("apply", time.perf_counter() - t2)
+            self._stage("apply", self._perf() - t2)
         except StoreError as err:
             self._note_fallback(err)
             return False
-        self._success(win, time.perf_counter() - t0)
+        self._success(win, self._perf() - t0)
         return True
 
     def _success(self, win, seconds: float) -> None:
@@ -307,13 +514,14 @@ class TensorConsensus:
         self.last_sweep_s = seconds
         self.total_sweep_s += seconds
 
-    def _note_fallback(self, err: StoreError) -> None:
+    def _note_fallback(self, err: Exception) -> None:
         # A store eviction degrades to the oracle, not a dead sync.
         # Writebacks are ordered so no partial mutation precedes a fallible
         # read (see apply_round_received), making the oracle re-run safe.
         self.fallbacks += 1
         self.breaker.record_failure()
-        logger.warning("accelerated sweep fell back to oracle: %s", err)
+        logger.warning("accelerated sweep of %s fell back to oracle: %s",
+                       self.owner or "this node", err)
 
     def stats(self) -> dict:
         avg_ms = (
@@ -328,6 +536,8 @@ class TensorConsensus:
             "accel_sweeps": self.sweeps,
             "accel_fallbacks": self.fallbacks,
             "accel_small_windows": self.small_windows,
+            "accel_deferred": self.deferred,
+            "accel_contended": self.contended,
             "accel_stale_drops": self.stale_drops,
             "accel_min_window": self.min_window,
             "accel_pipeline": self.pipeline,
@@ -340,6 +550,8 @@ class TensorConsensus:
             "accel_stage_ms": {
                 k: round(1000.0 * v, 1) for k, v in self.stage_s.items()
             },
+            "accel_dispatch_cpu_ms": round(1000.0 * self.dispatch_cpu_s, 1),
+            "accel_slot_held_ms": round(1000.0 * self.slot_held_s, 1),
         }
         # circuit-breaker surface: accel_breaker_state/open/probes/skips/
         # failures

@@ -9,7 +9,8 @@ The library name carries a hash over every source and header under
 
 A wrapper takes its plain version only for tensors on the CPU (the tests).
 For CUDA tensors it launches the kernel or raises: there is no fallback.
-Each wrapper counts its launches in a ``launches`` attribute.
+Each wrapper counts its launches in a ``launches`` attribute, under a lock:
+co-located nodes launch from many threads at once.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 #: nvcc's -Xptxas -v report (registers, spills) of every kernel in this
 #: process's compile; empty when an existing build was loaded
 ptxas_report = ""
@@ -180,7 +182,8 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
             W, P, S, stream,
         )
     _check_launch(rc, "member_ss_counts")
-    member_ss_counts.launches += 1
+    with _count_lock:
+        member_ss_counts.launches += 1
     return out
 
 
@@ -259,7 +262,8 @@ def strongly_see(la: torch.Tensor, fd: torch.Tensor,
             la.data_ptr(), fd.data_ptr(), out.data_ptr(), B, E, P, sm, stream,
         )
     _check_launch(rc, "strongly_see")
-    strongly_see.launches += 1
+    with _count_lock:
+        strongly_see.launches += 1
     return out
 
 
@@ -284,8 +288,9 @@ def strongly_see_tile(E: int, B: int) -> int:
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    member_ss_counts.launches = 0
-    strongly_see.launches = 0
+    with _count_lock:
+        member_ss_counts.launches = 0
+        strongly_see.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:

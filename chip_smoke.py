@@ -37,10 +37,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    once per pipeline run, once at each of its four shapes;
 7. the pipeline's times: wall ms per run and events/s at four windows, ms
    per window of the batch, peak device memory and host-clock ms per stage
-   at (64, 4096), and a profile of one run there (in a fresh process).
+   at (64, 4096), and a profile of one run there (in a fresh process);
+8. a node cluster on the card, in a fresh process: 16 port Nodes over
+   loopback TCP (bench.py's threaded 16-validator cell: heartbeat 0.05 s,
+   slow heartbeat 0.3 s, closed-loop 100-byte transactions stamped with
+   their submit time, 8 s of warm-up, a 12 s window) in three arms —
+   oracle, the offload at its defaults, and with min_window 0 — each with
+   identical blocks on every node and monotonic timestamps; in the card
+   arms node 0's chain equals a host-oracle replay of its own events, no
+   fallback, and K1's launches equal the device sweeps launched; committed
+   tx/s and submit-to-commit p50/p95 per arm, /metrics scraped over HTTP,
+   and a profiled window (torch.profiler and the host sampler) of the
+   defaults arm;
+9. the command line: four ``python -m babble_tpu_torch run --accelerator``
+   processes (their own datadirs, services, socket proxies, one shared
+   admission-slot directory, min_window 0) fed by socket clients until all
+   pass a block, which they must agree on, each with device sweeps and no
+   fallback, and ``/profile?format=torch`` on one of them must hold CUDA
+   kernel records.
 
-For each live path, K1 is also held against its plain version, and timed,
-at the shape that path's sweeps gave it most often. The line before the
+For each live path (the replays of phases 3 and 4, and the node cluster of
+phase 8), K1 is also held against its plain version, and timed, at the
+shape that path's sweeps gave it most often. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +94,8 @@ EVENTS_DAG_64 = 4096
 # blocks that must commit from rounds after it
 CHANGE_ROUND = 3
 MIN_BLOCKS_AFTER_CHANGE = 16
+# how long a replay may wait for its last pipelined sweep to land
+DRAIN_S = 60.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the 32-bit rate of
 # the CUDA cores outside the tensor cores; K1's compare-adds run there.
@@ -380,7 +400,8 @@ def gossip_stream(n_peers: int, n_events: int, seed: int):
 def replay(events, peers, accel=None, peer_sets=()):
     """Replay the stream through the port's live pipeline in syncs of
     SYNC_EVENTS events with a flush after each (Core.sync's cadence), then
-    drain any in-flight sweep. Returns (hashgraph, wall seconds)."""
+    drain any in-flight sweep (wall time included). Returns (hashgraph,
+    wall seconds)."""
     from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
 
     h = Hashgraph(InmemStore(1_000_000))
@@ -395,12 +416,14 @@ def replay(events, peers, accel=None, peer_sets=()):
                                              set_wire_info=True)
         h.flush_consensus()
     if accel is not None:
-        for _ in range(100):
-            if not accel.busy():
-                break
+        # a flush defers while the in-flight sweep is still on the card:
+        # flush until it lands and is applied
+        deadline = time.monotonic() + DRAIN_S
+        while accel.busy():
+            if time.monotonic() > deadline:
+                raise AssertionError("pipelined sweep never drained")
+            time.sleep(0.001)
             h.flush_consensus()
-        if accel.busy():
-            raise AssertionError("pipelined sweep never drained")
     return h, time.perf_counter() - t0
 
 
@@ -901,6 +924,687 @@ def k2_row(row: dict, launches: int, by_phase: dict) -> dict:
     }
 
 
+# -- phase 8: a node cluster on the card, in one process ----------------------
+
+# bench.py's 16-validator threaded cell (BASELINE.json config 3):
+# heartbeats, warm-up and window as bench_16node_threads runs them
+NODES = 16
+HEARTBEAT_S = 0.05
+SLOW_HEARTBEAT_S = 0.3
+WARMUP_S = 8.0
+WINDOW_S = 12.0
+# closed loop as bench.py's _measure_rate: PUMP_BATCH transactions every
+# PUMP_S while fewer than MAX_BACKLOG are submitted and not committed
+PUMP_BATCH = 16
+PUMP_S = 0.003
+MAX_BACKLOG = 2000
+# keeps every event in a node's store, for the replay of node 0's events
+NODE_CACHE = 200_000
+# the profiled window after the measured one (defaults arm)
+PROFILE_S = 2.0
+# after the windows, with the load stopped: the block every node must reach
+# before the checks, and how long it may take (16 nodes in one process
+# reached block 1 from 0 to 31 s after the load stopped, on the H100's host)
+SETTLE_BLOCK = 1
+SETTLE_S = 90.0
+
+
+def free_ports(n: int):
+    """``n`` free TCP ports on the loopback interface."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def tcp_cluster(n: int, accelerator: bool):
+    """``n`` port Nodes over loopback TCP in this process, each with the
+    dummy app behind an InmemProxy (bench.py's _make_tcp_cluster), the
+    offload on the card when ``accelerator``. Returns (nodes, proxies,
+    states), the nodes initialised and not yet running."""
+    from babble_tpu_torch.config.config import Config
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.dummy.state import State as DummyState
+    from babble_tpu_torch.hashgraph.store import InmemStore
+    from babble_tpu_torch.net.tcp import TCPTransport
+    from babble_tpu_torch.node.node import Node
+    from babble_tpu_torch.node.validator import Validator
+    from babble_tpu_torch.peers.peer import Peer
+    from babble_tpu_torch.peers.peer_set import PeerSet
+    from babble_tpu_torch.proxy.proxy import InmemProxy
+
+    keys = [generate_key() for _ in range(n)]
+    peers = PeerSet([
+        Peer(f"127.0.0.1:{port}", k.public_key.hex(), f"t{i}")
+        for i, (k, port) in enumerate(zip(keys, free_ports(n)))
+    ])
+    addr = {p.pub_key_hex: p.net_addr for p in peers.peers}
+    nodes, proxies, states = [], [], []
+    for i, k in enumerate(keys):
+        conf = Config(heartbeat_timeout=HEARTBEAT_S,
+                      slow_heartbeat_timeout=SLOW_HEARTBEAT_S,
+                      log_level="error", moniker=f"t{i}",
+                      accelerator=accelerator, cache_size=NODE_CACHE)
+        st = DummyState()
+        pr = InmemProxy(st)
+        node = Node(conf, Validator(k, f"t{i}"), peers, peers,
+                    InmemStore(conf.cache_size),
+                    TCPTransport(addr[k.public_key.hex()], timeout=2.0), pr)
+        node.init()
+        nodes.append(node)
+        proxies.append(pr)
+        states.append(st)
+    return nodes, proxies, states
+
+
+def stamped_tx(i: int) -> bytes:
+    """A TX_BYTES transaction carrying its submit time and a serial."""
+    import struct
+
+    head = struct.pack(">dQ", time.monotonic(), i)
+    return head + bytes(TX_BYTES - len(head))
+
+
+class Pump:
+    """bench.py's closed-loop load: PUMP_BATCH stamped transactions every
+    PUMP_S, round-robin over the nodes' proxies, while fewer than
+    MAX_BACKLOG are submitted and not yet committed on every node."""
+
+    def __init__(self, proxies, states):
+        self.proxies = proxies
+        self.states = states
+        self.i = 0
+
+    def committed(self) -> int:
+        return min(len(s.committed_txs) for s in self.states)
+
+    def until(self, t_end: float, stop=None) -> None:
+        while time.monotonic() < t_end and not (stop and stop.is_set()):
+            if self.i - self.committed() < MAX_BACKLOG:
+                for _ in range(PUMP_BATCH):
+                    self.proxies[self.i % len(self.proxies)].submit_tx(
+                        stamped_tx(self.i))
+                    self.i += 1
+            time.sleep(PUMP_S)
+
+
+def tx_latencies(commits, t0: float, t1: float):
+    """Submit-to-commit seconds of the stamped transactions that node 0
+    committed between t0 and t1; ``commits`` holds (commit time, block)."""
+    import struct
+
+    out = []
+    for t_commit, block in commits:
+        if t0 <= t_commit <= t1:
+            out += [t_commit - struct.unpack(">d", tx[:8])[0]
+                    for tx in block.transactions() if len(tx) == TX_BYTES]
+    return out
+
+
+def check_cluster_blocks(label, nodes) -> int:
+    """Every node's chain up to the common block, which must be at least
+    SETTLE_BLOCK: byte-identical bodies (tests/test_node.py::check_gossip)
+    and monotonic timestamps. Returns the common block index."""
+    common = min(n.get_last_block_index() for n in nodes)
+    if common < SETTLE_BLOCK:
+        raise AssertionError(f"[{label}] common block {common}: the cluster "
+                             "did not commit")
+    for bi in range(common + 1):
+        ref = nodes[0].get_block(bi).body.hash()
+        for n in nodes[1:]:
+            if n.get_block(bi).body.hash() != ref:
+                raise AssertionError(f"[{label}] block {bi} differs between "
+                                     "nodes")
+    for n in nodes:
+        stamps = [n.get_block(bi).timestamp() for bi in range(common + 1)]
+        if stamps != sorted(stamps):
+            raise AssertionError(f"[{label}] non-monotonic block timestamps")
+    return common
+
+
+def replay_own_events(label, node) -> int:
+    """Node ``node``'s chain against a host-oracle replay of its own events
+    in its topological order, through a fresh port Hashgraph with no
+    offload and the dummy app's commit: every block body hash equal.
+    Returns the number of events replayed."""
+    from babble_tpu_torch.dummy.state import State as DummyState
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
+
+    store = node.core.hg.store
+    events = sorted(
+        (store.get_event(eh)
+         for pk in store.repertoire_by_pub_key()
+         for eh in store.participant_events(pk, -1)),
+        key=lambda e: e.topological_index,
+    )
+    app = DummyState()
+
+    def commit(block):
+        resp = app.commit_handler(block)
+        block.body.state_hash = resp.state_hash
+        block.body.internal_transaction_receipts = resp.receipts
+
+    h = Hashgraph(InmemStore(NODE_CACHE), commit)
+    h.init(node.core.genesis_peers)
+    for ev in events:
+        h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
+                                         set_wire_info=True)
+    last = node.get_last_block_index()
+    if h.store.last_block_index() < last:
+        raise AssertionError(f"[{label}] the replay committed "
+                             f"{h.store.last_block_index() + 1} blocks, node "
+                             f"0 {last + 1}")
+    for bi in range(last + 1):
+        if h.store.get_block(bi).body.hash() != node.get_block(bi).body.hash():
+            raise AssertionError(f"[{label}] node 0's block {bi} differs from "
+                                 "the host replay of its events")
+    return len(events)
+
+
+def http_get(url: str, timeout: float = 60.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"GET {url}: HTTP {resp.status}")
+        return resp.read()
+
+
+def trace_device_summary(path: str, seconds: float) -> dict:
+    """From a chrome trace of torch.profiler: the device's busy share over
+    ``seconds`` (union of kernel and copy intervals), kernel ms by name,
+    and K1's launches."""
+    with open(path) as f:
+        trace = json.load(f)
+    spans, by_name, k1, n_kernels = [], Counter(), 0, 0
+    for ev in trace.get("traceEvents", []):
+        if ev.get("ph") != "X" or ev.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((ev["ts"], ev["ts"] + ev.get("dur", 0)))
+        if ev["cat"] == "kernel":
+            n_kernels += 1
+            by_name[ev["name"][:60]] += ev.get("dur", 0)
+            k1 += "member_ss" in ev["name"]
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {
+        "kernels": n_kernels, "k1_kernels": k1,
+        "busy_ms": busy / 1e3,
+        "busy_share": busy / 1e6 / seconds,
+        "top_ms": [(k, round(v / 1e3, 3)) for k, v in by_name.most_common(6)],
+    }
+
+
+def device_profile(seconds: float) -> dict:
+    """The card's activity over ``seconds`` of whatever runs meanwhile:
+    torch.profiler with CUDA activities only (kernels, copies), from this
+    thread, summarised by ``trace_device_summary`` (nothing for 0 s, which
+    only starts and stops the tracing). Without CPU activities the trace
+    stays small enough to stop and export while 16 node threads hold the
+    GIL (a CPU and CUDA capture through the service timed out there)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(seconds)
+        torch.cuda.synchronize()
+    if seconds <= 0:
+        return {}
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        return trace_device_summary(path, seconds)
+    finally:
+        os.remove(path)
+
+
+def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
+                warmup_s: float = WARMUP_S, window_s: float = WINDOW_S,
+                profile: bool = False) -> dict:
+    """One arm: an ``n``-node cluster under closed-loop load, ``warmup_s``
+    then a ``window_s`` measured window (and with ``profile`` a profiled
+    window after it), then the checks. K1's launches are counted from 0
+    for the arm and must equal the device sweeps it launched: applied,
+    dropped stale, and in flight when the nodes stopped."""
+    import os
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.service.service import Service
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        kernels.reset_launch_counts()
+        t_setup = time.perf_counter()
+        nodes, proxies, states = tcp_cluster(n, accelerator)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    commits = []
+    nodes[0].core.commit_listeners.append(
+        lambda block: commits.append((time.monotonic(), block)))
+    svc = Service("127.0.0.1:0", nodes[0])
+    svc.serve_async()
+    rec = {"arm": label}
+    try:
+        for node in nodes:
+            node.run_async()
+        log(f"[nodes/{label}] {n} nodes up in "
+            f"{time.perf_counter() - t_setup:.2f} s (set-up)")
+        pump = Pump(proxies, states)
+        pump.until(time.monotonic() + warmup_s)
+        base = pump.committed()
+        t0 = time.monotonic()
+        pump.until(t0 + window_s)
+        t1 = time.monotonic()
+        rec["tx_per_s"] = (pump.committed() - base) / (t1 - t0)
+        lat = tx_latencies(commits, t0, t1)
+        rec["p50_ms"] = 1e3 * _pct(lat, 0.5) if lat else None
+        rec["p95_ms"] = 1e3 * _pct(lat, 0.95) if lat else None
+        rec["latency_samples"] = len(lat)
+        metrics = http_get(f"http://{svc.bind_addr}/metrics").decode()
+        if "accel_sweeps_total" not in metrics and accelerator:
+            raise AssertionError(f"[nodes/{label}] /metrics lacks the "
+                                 "offload's counters")
+        if profile:
+            stop = threading.Event()
+            loader = threading.Thread(
+                target=pump.until, args=(time.monotonic() + 120, stop),
+                daemon=True)
+            loader.start()
+            try:
+                rec["device_profile"] = device_profile(PROFILE_S)
+                cap = json.loads(http_get(
+                    f"http://{svc.bind_addr}/profile?format=json"
+                    f"&seconds={PROFILE_S}"))
+                total = sum(cap["stages"].values()) or 1
+                rec["host_stages"] = {
+                    k: round(v / total, 3)
+                    for k, v in sorted(cap["stages"].items(),
+                                       key=lambda kv: -kv[1])}
+            finally:
+                stop.set()
+                loader.join(timeout=10)
+        t_settle = time.monotonic()
+        while (min(node.get_last_block_index() for node in nodes)
+               < SETTLE_BLOCK and time.monotonic() - t_settle < SETTLE_S):
+            time.sleep(0.25)
+        rec["settle_s"] = time.monotonic() - t_settle
+        stats = [node.get_stats_snapshot() for node in nodes]
+    finally:
+        t_down = time.monotonic()
+        svc.shutdown()
+        # all at once: each node waits up to 2 s for its gossip routines
+        stoppers = [threading.Thread(target=node.shutdown) for node in nodes]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join(timeout=120)
+        for node in nodes:
+            with node.core_lock:  # a sync still in flight finishes first
+                pass
+        rec["shutdown_s"] = time.monotonic() - t_down
+    if accelerator:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()["member_ss_counts"]
+    rec["common_block"] = check_cluster_blocks(f"nodes/{label}", nodes)
+    rec["node0_commit_p50_ms"] = stats[0]["commit_latency_p50_ms"]
+    rec["launches"] = launches
+    if not accelerator:
+        if launches:
+            raise AssertionError(f"[nodes/{label}] the oracle launched K1")
+        return rec
+    accels = [node.core.hg.accel for node in nodes]
+    applied = sum(a.sweeps for a in accels)
+    stale = sum(a.stale_drops for a in accels)
+    in_flight = sum(a.busy() for a in accels)
+    rec.update(
+        sweeps=applied, stale_drops=stale, in_flight=in_flight,
+        small_windows=sum(a.small_windows for a in accels),
+        contended=sum(a.contended for a in accels),
+        fallbacks=sum(a.fallbacks for a in accels),
+        buckets=sum((a.buckets for a in accels), Counter()),
+    )
+    busiest = max(stats, key=lambda s: s["accel_sweeps"])
+    rec["busiest"] = {k: busiest[k] for k in (
+        "accel_sweeps", "accel_avg_sweep_ms", "accel_contended",
+        "accel_deferred", "accel_small_windows")}
+    # where a sweep's time goes, per sweep launched and not in flight: the
+    # stages, the dispatch thread's CPU time and the slot's hold time
+    rec["busiest_per_sweep_ms"] = per_sweep_ms(
+        busiest["accel_stage_ms"], busiest["accel_dispatch_cpu_ms"],
+        busiest["accel_slot_held_ms"],
+        busiest["accel_sweeps"] + busiest["accel_stale_drops"])
+    rec["cluster_per_sweep_ms"] = per_sweep_ms(
+        {k: 1e3 * sum(a.stage_s[k] for a in accels)
+         for k in accels[0].stage_s},
+        1e3 * sum(a.dispatch_cpu_s for a in accels),
+        1e3 * sum(a.slot_held_s for a in accels), applied + stale)
+    if rec["fallbacks"]:
+        raise AssertionError(f"[nodes/{label}] {rec['fallbacks']} fallbacks")
+    if any(s["accel_kernel"] != "cuda" for s in stats):
+        raise AssertionError(f"[nodes/{label}] a node's sweep is not on K1")
+    if launches != applied + stale + in_flight:
+        raise AssertionError(
+            f"[nodes/{label}] K1 launches {launches} != device sweeps "
+            f"launched {applied + stale + in_flight} (applied {applied}, "
+            f"stale {stale}, in flight {in_flight})")
+    t_replay = time.monotonic()
+    rec["replayed_events"] = replay_own_events(f"nodes/{label}", nodes[0])
+    rec["replay_s"] = time.monotonic() - t_replay
+    return rec
+
+
+def per_sweep_ms(stage_ms: dict, dispatch_cpu_ms: float,
+                 slot_held_ms: float, n: int) -> dict:
+    n = max(1, n)
+    out = {k: round(v / n, 3) for k, v in stage_ms.items()}
+    out["dispatch_cpu"] = round(dispatch_cpu_ms / n, 3)
+    out["slot_held"] = round(slot_held_ms / n, 3)
+    return out
+
+
+def log_arm(rec: dict, name_power: str) -> None:
+    def ms(x):
+        return "n/a" if x is None else f"{x:.1f}"
+
+    log(f"[nodes/{rec['arm']}] {rec['tx_per_s']:.1f} committed tx/s; "
+        f"submit-to-commit p50 {ms(rec['p50_ms'])} ms, p95 "
+        f"{ms(rec['p95_ms'])} ms ({rec['latency_samples']} tx); node 0 "
+        f"commit_latency_p50_ms {rec['node0_commit_p50_ms']}; blocks "
+        f"identical on every node up to block {rec['common_block']} "
+        f"(reached {rec['settle_s']:.1f} s after the load stopped; nodes "
+        f"stopped in {rec['shutdown_s']:.1f} s); {name_power}")
+    if "sweeps" not in rec:
+        return
+    log(f"[nodes/{rec['arm']}] sweeps applied {rec['sweeps']}, stale "
+        f"{rec['stale_drops']}, in flight {rec['in_flight']} = K1 launches "
+        f"{rec['launches']}; small_windows {rec['small_windows']}, contended "
+        f"{rec['contended']}, fallbacks 0; node 0's chain equals the host "
+        f"replay of its {rec['replayed_events']} events ({rec['replay_s']:.1f}"
+        f" s); busiest node "
+        f"{json.dumps(rec['busiest'])}")
+    log(f"[nodes/{rec['arm']}] ms per sweep (readback: enqueue end to the "
+        f"flush that finds it landed; dispatch_cpu: the dispatching "
+        f"thread's CPU time): busiest node "
+        f"{json.dumps(rec['busiest_per_sweep_ms'])}, all nodes "
+        f"{json.dumps(rec['cluster_per_sweep_ms'])}")
+    buckets = {"x".join(map(str, k)): v
+               for k, v in rec["buckets"].most_common()}
+    log(f"[nodes/{rec['arm']}] buckets (W,E,P,S,R): {json.dumps(buckets)}")
+    if "device_profile" in rec:
+        prof = rec["device_profile"]
+        log(f"[nodes/{rec['arm']}] profiled {PROFILE_S} s under load: device "
+            f"busy {prof['busy_ms']:.1f} ms ({prof['busy_share']:.1%}), "
+            f"{prof['kernels']} kernels, {prof['k1_kernels']} of them K1; "
+            f"top (name, ms): {prof['top_ms']}")
+        log(f"[nodes/{rec['arm']}] host sampler, share of thread samples by "
+            f"stage: {json.dumps(rec['host_stages'])}")
+
+
+def node_cluster_child() -> None:
+    """Phase 8, in a process of its own: oracle, the card at its defaults,
+    the card with min_window 0. Prints each arm, then one ``NODES`` line of
+    JSON for the parent."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.ops.device import nvidia_smi_name_power
+
+    kernels.build()
+    torch.cuda.init()
+    name_power = nvidia_smi_name_power() or "nvidia-smi: not available"
+    # Start the profiler's CUDA tracing once while this process has one
+    # thread: its first start under 16 node threads took 208 s.
+    t0 = time.perf_counter()
+    device_profile(0.0)
+    log(f"[nodes] profiler warmed up in {time.perf_counter() - t0:.2f} s "
+        "(set-up)")
+    arms = []
+    for label, acc, env, prof in (
+        ("oracle", False, {}, False),
+        ("defaults", True, {}, True),
+        ("min_window=0", True, {"BABBLE_ACCEL_MIN_WINDOW": "0"}, False),
+    ):
+        t0 = time.perf_counter()
+        rec = cluster_arm(label, acc, env, profile=prof)
+        log_arm(rec, name_power)
+        log(f"[nodes/{label}] arm wall {time.perf_counter() - t0:.1f} s")
+        arms.append(rec)
+    if arms[2]["sweeps"] <= 0:
+        raise AssertionError("[nodes/min_window=0] no device sweep ran")
+    for rec in arms:
+        if "buckets" in rec:
+            rec["buckets"] = [[list(k), v] for k, v in rec["buckets"].items()]
+    print("NODES " + json.dumps(arms), flush=True)
+
+
+def node_cluster_fresh() -> list:
+    """``node_cluster_child`` in a fresh interpreter (a young process keeps
+    every device record in its profile, see ``profile_dag_fresh``, and the
+    cluster's threads start from a clean process). Returns its arms."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.node_cluster_child()"],
+        cwd=here, capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.splitlines()
+    sys.stdout.write("".join(ln + "\n" for ln in lines
+                             if not ln.startswith("NODES ")))
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"node cluster process exit {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    arms = json.loads([ln for ln in lines if ln.startswith("NODES ")][0][6:])
+    for rec in arms:
+        if "buckets" in rec:
+            rec["buckets"] = Counter({tuple(k): v for k, v in rec["buckets"]})
+    return arms
+
+
+# -- phase 9: the command line, as processes ---------------------------------
+
+CLI_NODES = 4
+CLI_TARGET_BLOCK = 4
+CLI_PROFILE_S = 1.0
+CLI_TIMEOUT_S = 180.0
+
+
+def cli_cluster() -> dict:
+    """CLI_NODES ``python -m babble_tpu_torch run --accelerator`` processes
+    on the card, each with its own datadir (keygen, peers.json), service,
+    socket proxy and dummy client, sharing one BABBLE_ACCEL_SLOT_DIR, with
+    BABBLE_ACCEL_MIN_WINDOW=0 (bench.py's bench_subprocess_cluster). Clients
+    submit until every node passes CLI_TARGET_BLOCK; then every node must
+    agree on that block's body, report device sweeps and no fallback, and
+    node 0's torch profile must hold CUDA kernel records. The children are
+    killed at the end; one that exits early fails the phase."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+
+    from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.dummy.socket_client import DummySocketClient
+    from babble_tpu_torch.hashgraph.block import BlockBody
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    n, target_block = CLI_NODES, CLI_TARGET_BLOCK
+    ports = free_ports(4 * n)
+    gossip, service, proxy, client = (ports[i * n:(i + 1) * n]
+                                      for i in range(4))
+    keys = [generate_key() for _ in range(n)]
+    peers = [{"NetAddr": f"127.0.0.1:{gossip[i]}",
+              "PubKeyHex": k.public_key.hex(), "Moniker": f"c{i}"}
+             for i, k in enumerate(keys)]
+    env = {**os.environ, "BABBLE_ACCEL_SLOT_DIR": os.path.join(tmp, "slots"),
+           "BABBLE_ACCEL_MIN_WINDOW": "0"}
+    procs, clients, errs = [], [], []
+
+    def check_alive() -> None:
+        for i, p in enumerate(procs):
+            if p.poll() is not None:
+                errs[i].flush()
+                with open(errs[i].name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"[cli] node {i} exited early with "
+                                     f"{p.returncode}:\n{tail}")
+
+    def stats(i: int) -> dict:
+        """A node's /stats: the reference's map of strings."""
+        return json.loads(http_get(f"http://127.0.0.1:{service[i]}/stats",
+                                   timeout=5))
+
+    try:
+        t_start = time.perf_counter()
+        for i, k in enumerate(keys):
+            dd = os.path.join(tmp, f"c{i}")
+            os.makedirs(dd)
+            SimpleKeyfile(os.path.join(dd, "priv_key")).write_key(k)
+            for fn in ("peers.json", "peers.genesis.json"):
+                with open(os.path.join(dd, fn), "w") as f:
+                    json.dump(peers, f)
+            errs.append(open(os.path.join(tmp, f"c{i}.err"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "babble_tpu_torch", "run",
+                 "--accelerator", "--datadir", dd,
+                 "--listen", f"127.0.0.1:{gossip[i]}",
+                 "--service-listen", f"127.0.0.1:{service[i]}",
+                 "--proxy-listen", f"127.0.0.1:{proxy[i]}",
+                 "--client-connect", f"127.0.0.1:{client[i]}",
+                 "--heartbeat", str(HEARTBEAT_S),
+                 "--slow-heartbeat", str(SLOW_HEARTBEAT_S),
+                 "--moniker", f"c{i}", "--log", "error"],
+                stdout=subprocess.DEVNULL, stderr=errs[i], cwd=here, env=env,
+            ))
+            clients.append(DummySocketClient(f"127.0.0.1:{client[i]}",
+                                             f"127.0.0.1:{proxy[i]}"))
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        up = set()
+        while len(up) < n:
+            check_alive()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[cli] only {len(up)}/{n} nodes came up")
+            for i in set(range(n)) - up:
+                try:
+                    if stats(i).get("state") == "Babbling":
+                        up.add(i)
+                except OSError:
+                    pass
+            time.sleep(0.5)
+        log(f"[cli] {n} node processes babbling "
+            f"{time.perf_counter() - t_start:.1f} s after launch (set-up)")
+        stop = threading.Event()
+
+        def submit() -> None:
+            j = 0
+            while not stop.is_set():
+                clients[j % n].submit_tx(stamped_tx(j))
+                j += 1
+                time.sleep(0.002)
+
+        loader = threading.Thread(target=submit, daemon=True)
+        loader.start()
+        try:
+            t0 = time.perf_counter()
+            while min(int(stats(i)["last_block_index"])
+                      for i in range(n)) < target_block:
+                check_alive()
+                if time.monotonic() > deadline:
+                    raise AssertionError("[cli] the nodes did not reach "
+                                         f"block {target_block}")
+                time.sleep(0.25)
+            t_blocks = time.perf_counter() - t0
+            prof = json.loads(http_get(
+                f"http://127.0.0.1:{service[0]}/profile?format=torch"
+                f"&seconds={CLI_PROFILE_S}"))
+            t_prof = time.perf_counter() - t0 - t_blocks
+        finally:
+            stop.set()
+            loader.join(timeout=10)
+        bodies = [json.loads(http_get(
+            f"http://127.0.0.1:{service[i]}/block/{target_block}"))["Body"]
+            for i in range(n)]
+        hashes = {BlockBody.from_dict(b).hash().hex() for b in bodies}
+        if len(hashes) != 1:
+            raise AssertionError(f"[cli] block {target_block} differs across "
+                                 f"nodes: {hashes}")
+        all_stats = [stats(i) for i in range(n)]
+        for i, st in enumerate(all_stats):
+            if (st["consensus_engine"] != "device"
+                    or int(st["accel_sweeps"]) <= 0
+                    or int(st["accel_fallbacks"]) != 0
+                    or st["accel_kernel"] != "cuda"):
+                raise AssertionError(f"[cli] node {i}: engine "
+                                     f"{st['consensus_engine']}, kernel "
+                                     f"{st['accel_kernel']}, sweeps "
+                                     f"{st['accel_sweeps']}, fallbacks "
+                                     f"{st['accel_fallbacks']}")
+        summary = trace_device_summary(prof["trace_file"], CLI_PROFILE_S)
+        if summary["kernels"] <= 0:
+            raise AssertionError("[cli] the torch profile holds no CUDA "
+                                 "kernel records")
+        check_alive()
+        rec = {
+            "block": target_block, "body_hash": hashes.pop(),
+            "seconds_to_block": t_blocks,
+            "sweeps": [int(st["accel_sweeps"]) for st in all_stats],
+            "contended": [int(st["accel_contended"]) for st in all_stats],
+            "profile": summary,
+        }
+        log(f"[cli] {n} processes agree on block {target_block} (body "
+            f"{rec['body_hash'][:16]}…, reached in {t_blocks:.1f} s); "
+            f"consensus_engine device, sweeps {rec['sweeps']}, contended "
+            f"{rec['contended']}, fallbacks 0; /profile?format=torch over "
+            f"{CLI_PROFILE_S} s on node 0 (answered in {t_prof:.1f} s): "
+            f"{summary['kernels']} CUDA kernel records, "
+            f"{summary['k1_kernels']} of them K1, device busy "
+            f"{summary['busy_share']:.1%}")
+        return rec
+    finally:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait(timeout=30)
+        for c in clients:
+            c.close()
+        for f in errs:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # Run in a tree of the repo (this one or an earlier commit's) by
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
@@ -1068,6 +1772,20 @@ def main(argv=None) -> int:
     profile_dag_fresh()
     rows += [k2_row(k2_checked[shape], k2_at[shape], by_phase)
              for shape in K2_ROWS]
+
+    # Phase 8: 16 nodes on the card in one (fresh) process; counts from 0
+    # to the end of each arm, in that process
+    t0 = time.perf_counter()
+    arms = node_cluster_fresh()
+    log(f"[nodes] phase 8: {time.perf_counter() - t0:.1f} s")
+    rows.append(k1_row(f"{NODES}-node cluster",
+                       [r for r in arms if "buckets" in r],
+                       seed=args.seed + 102))
+
+    # Phase 9: the command line, four node processes on the card
+    t0 = time.perf_counter()
+    cli_cluster()
+    log(f"[cli] phase 9: {time.perf_counter() - t0:.1f} s")
 
     log(dev["name_power"] or "nvidia-smi: not available")
     print(json.dumps({"kernels": rows}), flush=True)

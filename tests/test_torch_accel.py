@@ -10,6 +10,8 @@ committed block bodies byte for byte, and the undetermined set.
 
 from __future__ import annotations
 
+import threading
+
 import pytest
 
 from babble_tpu.crypto.canonical import canonical_dumps as j_dumps
@@ -18,6 +20,7 @@ from babble_tpu.hashgraph.accel import TensorConsensus as JTensorConsensus
 from babble_tpu.parallel.voting_shard import synthetic_voting_window
 from babble_tpu_torch.common.errors import StoreError, StoreErrorKind
 from babble_tpu_torch.crypto.canonical import canonical_dumps as p_dumps
+from babble_tpu_torch.hashgraph import accel as accel_mod
 from babble_tpu_torch.hashgraph.accel import TensorConsensus
 from babble_tpu_torch.ops import kernels, voting
 
@@ -278,3 +281,140 @@ def test_port_peer_set_hashes_match():
     """The peer-set copy the replays rely on hashes like the original."""
     h, _index, _nodes, peer_set = BUILDERS["basic"]()
     assert port_peer_set(peer_set).hash() == peer_set.hash()
+
+
+# -- admission control and deferral (the node path's sharing of one card) -----
+
+
+def test_flock_slots_are_shared_across_holders(tmp_path):
+    """BABBLE_ACCEL_SLOT_DIR's slots: n flock-guarded files, so two holders
+    (processes on one card; here two in one process, each with its own
+    open files) never hold more than n between them."""
+    a = accel_mod._FlockSlots(str(tmp_path), 2)
+    b = accel_mod._FlockSlots(str(tmp_path), 2)
+    assert a.acquire() and a.acquire()
+    assert not b.acquire()
+    a.release()
+    assert b.acquire()
+    assert not a.acquire()
+    with pytest.raises(ValueError):
+        a.acquire(blocking=True)
+
+
+class _NoSlots:
+    def acquire(self, blocking=False):
+        return False
+
+    def release(self):
+        raise AssertionError("released a slot never acquired")
+
+
+def test_contended_launch_rides_the_oracle(monkeypatch):
+    """With every admission slot taken, a pipelined flush lets the oracle
+    decide and counts the launch as contended, not as a fallback."""
+    monkeypatch.setattr(accel_mod, "_inflight_slots", lambda: _NoSlots())
+    h, _index, _nodes, peer_set = BUILDERS["consensus"]()
+    ordered = _ordered_events(h)
+    oracle = _jax_replay(ordered, peer_set)
+    port = _port_replay(oracle, ordered, sweep_events=3, pipeline=True)
+    assert port.accel.sweeps == 0
+    assert port.accel.contended > 0
+    assert port.accel.fallbacks == 0
+    _assert_same(port, oracle)
+
+
+class _Running:
+    """A CUDA event stand-in for a sweep still on the card: ``query()``
+    is False until ``land()``."""
+
+    def __init__(self):
+        self.landed = False
+
+    def query(self):
+        return self.landed
+
+    def land(self):
+        self.landed = True
+
+
+def _hold_running(inf, slots):
+    """Make a CPU sweep look as if it were still on the card, holding a
+    slot of ``slots`` (its ``start`` unused: device time stays None)."""
+    assert slots.acquire(blocking=False)
+    inf.done = _Running()
+    inf.hold(slots, inf.t_enqueued)
+
+
+def _device_seconds_none(monkeypatch):
+    monkeypatch.setattr(accel_mod._Inflight, "device_seconds",
+                        lambda self: None)
+
+
+def test_flush_defers_while_the_sweep_runs_then_applies(monkeypatch):
+    """A flush that finds its sweep still on the device defers (decisions
+    land at a later flush) and holds the admission slot until a flush
+    finds the sweep landed; then it applies, frees the slot and counts
+    the time it held it."""
+    _device_seconds_none(monkeypatch)
+    oracle, ph = _port_unflushed("consensus", pipeline=True)
+    slots = threading.Semaphore(1)
+    ph.flush_consensus()
+    inf = ph.accel._inflight
+    assert inf is not None and inf.slots is None  # CPU: freed at launch
+    _hold_running(inf, slots)
+    ph._accel_pending = 1
+    ph.flush_consensus()
+    assert ph.accel.deferred == 1 and ph.accel.busy()
+    assert ph.accel.sweeps == 0
+    assert not slots.acquire(blocking=False)  # still held
+    inf.done.land()
+    ph._accel_pending = 1
+    ph.flush_consensus()
+    assert ph.accel.sweeps == 1 and not ph.accel.busy()
+    assert inf.slots is None and slots.acquire(blocking=False)
+    assert ph.accel.slot_held_s >= 0.0 and ph.accel.fallbacks == 0
+    _assert_same(ph, oracle)
+
+
+def test_sweep_outliving_the_readback_timeout_raises(monkeypatch):
+    """A sweep still not done ``readback_timeout_s`` after it was enqueued
+    (a wedged card) raises out of flush: it is not a fallback, and the
+    oracle does not quietly take the node over."""
+    _device_seconds_none(monkeypatch)
+    _oracle, ph = _port_unflushed("consensus", pipeline=True)
+    ph.flush_consensus()
+    inf = ph.accel._inflight
+    _hold_running(inf, threading.Semaphore(1))
+    ph.accel.readback_timeout_s = 0.0
+    ph._accel_pending = 1
+    with pytest.raises(TimeoutError, match="not done"):
+        ph.flush_consensus()
+    assert ph.accel.fallbacks == 0 and ph.accel.sweeps == 0
+    assert ph.accel.busy()  # the next flush raises again
+
+
+def test_launch_reaps_landed_sweeps_of_silent_nodes(monkeypatch):
+    """A node that stops flushing does not keep its slot: a launch that
+    finds every slot taken frees those of sweeps that have landed, and
+    their owners still apply them at their next flush."""
+    _device_seconds_none(monkeypatch)
+    slots = threading.Semaphore(1)
+    monkeypatch.setattr(accel_mod, "_inflight_slots", lambda: slots)
+    oracle, silent = _port_unflushed("consensus", pipeline=True)
+    silent.flush_consensus()
+    inf = silent.accel._inflight
+    assert inf.slots is None
+    _hold_running(inf, slots)
+
+    _oracle, other = _port_unflushed("consensus", pipeline=True)
+    other.flush_consensus()  # the silent node's sweep is still running
+    assert other.accel.contended == 1 and other.accel._inflight is None
+    inf.done.land()
+    other._accel_pending = 1
+    other.flush_consensus()  # reaps the landed sweep, takes its slot
+    assert other.accel.contended == 1 and other.accel.busy()
+    assert inf.slots is None
+    silent._accel_pending = 1
+    silent.flush_consensus()
+    assert silent.accel.sweeps == 1 and silent.accel.fallbacks == 0
+    _assert_same(silent, oracle)

@@ -8,7 +8,10 @@ conftest (which sets JAX up):
 
 from __future__ import annotations
 
+import json
 import random
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -23,7 +26,16 @@ from babble_tpu_torch.ops.intdot import vote_matmul
 from babble_tpu_torch.parallel import batch_of_snapshots, batched_pipeline
 from babble_tpu_torch.peers import Peer, PeerSet
 
-from chip_smoke import edge_coordinates, edge_super_majority, k1_edge_inputs
+from chip_smoke import (
+    Pump,
+    cluster_arm,
+    edge_coordinates,
+    edge_super_majority,
+    http_get,
+    k1_edge_inputs,
+    tcp_cluster,
+    trace_device_summary,
+)
 
 INT32_MAX = np.int32(2**31 - 1)
 
@@ -291,3 +303,60 @@ def test_failing_k2_launch_raises_out_of_pipeline(card, monkeypatch):
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         dag.run_pipeline(dag.synthetic_snapshot(4, 64), device=card)
     assert kernels.launch_counts()["strongly_see"] == 0
+
+
+# -- the node stack on the card -----------------------------------------------
+
+
+@pytest.mark.parametrize("arm,env", [
+    ("defaults", {}), ("min_window=0", {"BABBLE_ACCEL_MIN_WINDOW": "0"}),
+])
+def test_node_cluster_on_card(card, arm, env):
+    """Four port nodes over loopback TCP with the offload on the card
+    (chip_smoke.py phase 8 at a smaller size): identical blocks on every
+    node, node 0's chain equal to the host replay of its events, no
+    fallback, and one K1 launch per device sweep launched. With min_window
+    0 every window sweeps, and a profiled window must hold K1's kernel
+    records."""
+    sweeping = arm == "min_window=0"
+    rec = cluster_arm(arm, True, env, n=4, warmup_s=3.0, window_s=4.0,
+                      profile=sweeping)
+    assert rec["common_block"] >= 1
+    assert rec["fallbacks"] == 0
+    assert rec["launches"] == (rec["sweeps"] + rec["stale_drops"]
+                               + rec["in_flight"])
+    if sweeping:
+        assert rec["sweeps"] > 0
+        assert rec["device_profile"]["k1_kernels"] > 0
+
+
+def test_profile_hook_on_card(card, monkeypatch):
+    """GET /profile?format=torch on a node whose offload sweeps on the card
+    answers with a chrome trace of CPU and CUDA activities that holds K1's
+    kernel records."""
+    from babble_tpu_torch.service.service import Service
+
+    monkeypatch.setenv("BABBLE_ACCEL_MIN_WINDOW", "0")
+    nodes, proxies, states = tcp_cluster(4, True)
+    svc = Service("127.0.0.1:0", nodes[0])
+    svc.serve_async()
+    pump = Pump(proxies, states)
+    stop = threading.Event()
+    loader = threading.Thread(target=pump.until,
+                              args=(time.monotonic() + 60, stop), daemon=True)
+    try:
+        for n in nodes:
+            n.run_async()
+        loader.start()
+        time.sleep(3.0)
+        body = json.loads(http_get(
+            f"http://{svc.bind_addr}/profile?format=torch&seconds=1"))
+        assert body["activities"] == ["CPU", "CUDA"]
+        summary = trace_device_summary(body["trace_file"], 1.0)
+        assert summary["k1_kernels"] > 0
+    finally:
+        stop.set()
+        loader.join(timeout=10)
+        svc.shutdown()
+        for n in nodes:
+            n.shutdown()

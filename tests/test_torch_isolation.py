@@ -9,8 +9,9 @@ run when the card is asked for.
   ``run_pipeline()`` and ``batched_pipeline()`` at their defaults raise
   instead of running on the CPU.
 
-Both scans walk the whole package, so every module (``ops/dag.py`` and
-``parallel/`` included) is covered without a list to keep.
+Both scans walk the whole package, so every module (``ops/dag.py``,
+``parallel/``, and the node, net, CLI, service and sim stacks included) is
+covered without a list to keep.
 """
 
 from __future__ import annotations
@@ -72,7 +73,14 @@ def test_no_forbidden_imports_in_sources():
             bad += [(os.path.relpath(path, ROOT), n) for n in names
                     if _forbidden(n)]
     assert bad == []
-    assert len(list(_port_modules())) > 20
+    mods = set(_port_modules())
+    assert len(mods) > 100
+    # the entry point's stack is walked too
+    for sub in ("node", "net", "cli", "service", "sim"):
+        assert any(m.startswith(f"babble_tpu_torch.{sub}.") for m in mods), sub
+    assert {"babble_tpu_torch.__main__", "babble_tpu_torch.cli.__main__",
+            "babble_tpu_torch.node.core", "babble_tpu_torch.node.node",
+            "babble_tpu_torch.service.service"} <= mods
 
 
 def test_importing_every_port_module_loads_no_jax():
