@@ -5,10 +5,14 @@
 // at :54-66), called from the fused sweep's fame stage
 // (babble_tpu/ops/voting.py:183-192):
 //
-//     counts[s, v, w] = sum_p member[s, p] * (la[v, p] >= fd[w, p])
+//     counts[b, s, v, w] = sum_p member[b, s, p] * (la[b, v, p] >= fd[b, w, p])
 //
-// la, fd: int32 [W, P] row-major; member: torch.bool (one byte) [S, P];
-// out: int32 [S, W, W]. Missing coordinates carry the sentinels la = -1 and
+// la, fd: int32 [B, W, P] row-major; member: torch.bool (one byte)
+// [B, S, P]; out: int32 [B, S, W, W]; B = 1 for one window. The batch axis
+// is the sweep batcher's (babble_tpu_torch/hashgraph/sweep_batcher.py): the
+// JAX package vmaps the fused sweep over co-located validators' windows
+// (babble_tpu/ops/voting.py:319-323), and vmap of a pallas_call adds a grid
+// axis; here the windows share one launch. Missing coordinates carry the sentinels la = -1 and
 // fd = INT32_MAX. The kernel computes the product by member, exactly, for
 // every pair of int32 values. The Pallas wrapper folds membership into fd
 // as INT32_MAX instead (pallas_kernels.py:100-102); the two agree wherever
@@ -16,8 +20,8 @@
 // K1's stated domain.
 //
 // What bounds it on an H100 SXM (3.35 TB/s; 67 TFLOP/s of 32-bit
-// operations): it reads 8*W*P + S*P bytes, writes 4*S*W^2 bytes and does
-// S*W^2*P compare-adds. At the live shapes (W a power of two from 16 to
+// operations): per window it reads 8*W*P + S*P bytes, writes 4*S*W^2 bytes
+// and does S*W^2*P compare-adds. At the live shapes (W a power of two from 16 to
 // 1024, P a multiple of 8 up to 64, S of 1 or 2) that is at most 4 us of
 // work, and at the common ones (W 128-256) well under 1 us: the launch
 // bounds it there, and the design must not add to it.
@@ -29,9 +33,18 @@
 // beside the membership rows of the block's slots as 0/1 weights. One
 // compare (ISETP) per (v, w, p) feeds a predicated add (FADD) of each
 // slot's weight, so S = 2 costs one compare, not two: a block takes one
-// slot when S = 1 and two otherwise (blockIdx.z = slot pair). The 128 tile
-// is taken where it still gives two blocks per SM (W over 2048), the 32
-// tile below, so that the live buckets spread over the SMs. The epilogue
+// slot when S = 1 and two otherwise (one for an odd S, so that a block's
+// slots never span two windows; live windows have S a power of two). The
+// batch is addressed through the inputs' own layout: la and fd are read as
+// [B*W, P] row blocks, window b's tiles starting at row b*W, and slots are
+// numbered across the batch (blockIdx.z * NS is the first of the block's
+// B*S slots, window b's being b*S to b*S + S - 1), so the kernel's
+// pointers stay kernel parameters and no per-window pointer takes
+// registers. Tile rows past a window's W read the next window's rows (or
+// the masked sentinels past B*W); their counts are never stored. The 128
+// tile is taken where it still gives two blocks per SM over the whole grid
+// (W over 2048 for one window), the 32 tile below, so that the live
+// buckets spread over the SMs. The epilogue
 // stores four counts as one 16-byte word, consecutive threads on
 // consecutive words of a row (single words where W is not a multiple of
 // 4). The ragged edges of W and P are masked at staging, not padded to the
@@ -56,23 +69,24 @@ __global__ void __launch_bounds__(bt::kThreads, (bt::kBlocksPerSM<B, NS>))
     member_ss_kernel(const int32_t* __restrict__ la,
                      const int32_t* __restrict__ fd,
                      const uint8_t* __restrict__ member,
-                     int32_t* __restrict__ out, int W, int P, int S) {
+                     int32_t* __restrict__ out, int W, int P, int rows,
+                     int slots, int groups) {
   using T = bt::Tile<B>;
   __shared__ __align__(16) bt::Ring<B, NS> ring;
 
-  const int s0 = blockIdx.z * NS;
+  const int s0 = blockIdx.z * NS;  // of the batch's `slots`
+  const int r0 = (blockIdx.z / groups) * W;  // the window's first row
   const int v0 = blockIdx.y * B;
   const int w0 = blockIdx.x * B;
   float acc[NS][T::kTM][T::kTN];
-  bt::count_tile<B, NS, true>(ring, la, fd, member, W, P, S, s0, v0, w0,
-                              acc);
+  bt::count_tile<B, NS, true>(ring, la, fd, member, rows, P, slots, s0,
+                              r0 + v0, r0 + w0, acc);
 
   const int tx = threadIdx.x % T::kThreadsX;
   const int ty = threadIdx.x / T::kThreadsX;
   const bool words = W % 4 == 0;
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    if (s0 + s >= S) break;
     int32_t* plane = out + static_cast<size_t>(s0 + s) * W * W;
 #pragma unroll
     for (int i = 0; i < T::kTM; ++i) {
@@ -100,42 +114,51 @@ __global__ void __launch_bounds__(bt::kThreads, (bt::kBlocksPerSM<B, NS>))
 
 template <int B, int NS>
 int launch(const void* la, const void* fd, const void* member, void* out,
-           int W, int P, int S, int groups, void* stream) {
-  const dim3 grid((W + B - 1) / B, (W + B - 1) / B, groups);
+           int nb, int W, int P, int S, void* stream) {
+  const int groups = S / NS;
+  const dim3 grid((W + B - 1) / B, (W + B - 1) / B, nb * groups);
   member_ss_kernel<B, NS><<<grid, bt::kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(la), static_cast<const int32_t*>(fd),
       static_cast<const uint8_t*>(member), static_cast<int32_t*>(out), W, P,
-      S);
+      nb * W, nb * S, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Slots per block: one for S = 1, else two.
-int slots_per_block(int S) { return S == 1 ? 1 : 2; }
+// Slots per block: two where S is even, else one.
+int slots_per_block(int S) { return S % 2 == 0 ? 2 : 1; }
 
 }  // namespace
 
 extern "C" {
 
-// Side of the output tile K1 takes for W voters and S slots: 32 or 128.
-int bt_member_ss_tile(int W, int S) {
-  const int ns = slots_per_block(S);
-  return bt::tile_side(W, (S + ns - 1) / ns);
+// Side of the output tile K1 takes for B windows of W voters and S slots:
+// 32 or 128.
+int bt_member_ss_tile(int B, int W, int S) {
+  return bt::tile_side(W, B * (S / slots_per_block(S)));
 }
 
-// Launch K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
-// Pointers are device pointers; nothing is allocated or synchronised here.
+// Launch K1 over B windows on `stream`; returns the cudaError_t of the
+// launch (0 = ok). Pointers are device pointers; nothing is allocated or
+// synchronised here.
 int bt_member_ss_counts(const void* la, const void* fd, const void* member,
-                        void* out, int W, int P, int S, void* stream) {
-  if (W <= 0 || P < 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool large = bt_member_ss_tile(W, S) == 128;
-  if (S == 1) {
-    return large ? launch<128, 1>(la, fd, member, out, W, P, S, 1, stream)
-                 : launch<32, 1>(la, fd, member, out, W, P, S, 1, stream);
+                        void* out, int B, int W, int P, int S,
+                        void* stream) {
+  if (B <= 0 || W <= 0 || P < 0 || S <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int groups = (S + 1) / 2;
-  return large ? launch<128, 2>(la, fd, member, out, W, P, S, groups, stream)
-               : launch<32, 2>(la, fd, member, out, W, P, S, groups, stream);
+  const int ns = slots_per_block(S);
+  if (static_cast<long long>(B) * (S / ns) > 65535 ||
+      static_cast<long long>(B) * W > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const bool large = bt_member_ss_tile(B, W, S) == 128;
+  if (ns == 1) {
+    return large ? launch<128, 1>(la, fd, member, out, B, W, P, S, stream)
+                 : launch<32, 1>(la, fd, member, out, B, W, P, S, stream);
+  }
+  return large ? launch<128, 2>(la, fd, member, out, B, W, P, S, stream)
+               : launch<32, 2>(la, fd, member, out, B, W, P, S, stream);
 }
 
 }  // extern "C"

@@ -18,19 +18,35 @@ Two modes:
   hashgraph's incremental == batch property, so consensus output is
   identical; only decision latency shifts by one flush.
 
-Admission control: co-located nodes (threads of one process, or processes
-sharing ``BABBLE_ACCEL_SLOT_DIR``) share one card, and at most
-``_MAX_INFLIGHT`` pipelined sweeps are in flight on it at once. A flush
-that finds every slot taken lets the oracle carry it and counts in
-``contended`` — the small-window economics of ``min_window``, not a fault.
+Two options, resolved as the JAX package resolves them:
+
+- **Resident windows** (``resident``, on unless ``BABBLE_ACCEL_RESIDENT``
+  is ``"0"``): the snapshot is a persistent ``ops.window_state.WindowState``
+  updated in O(ΔE) per sweep, and without the batcher the window's rows
+  stay on the device between sweeps (only the delta is uploaded). Results
+  apply only while the snapshot's generation is the state's; an oracle
+  pass, a fallback or ``invalidate`` marks the state dirty.
+- **The sweep batcher** (``batcher``, ``BABBLE_ACCEL_BATCH=1/0``, else on
+  exactly on a card): the window goes to the process-wide
+  ``SweepBatcher``, which sweeps every co-located node's window of a flush
+  wave in one batched sweep; a flush polls its ticket.
+
+Admission control (without the batcher): co-located nodes (threads of one
+process, or processes sharing ``BABBLE_ACCEL_SLOT_DIR``) share one card,
+and at most ``_MAX_INFLIGHT`` pipelined sweeps are in flight on it at once.
+A flush that finds every slot taken, or the batcher backlogged, lets the
+oracle carry it and counts in ``contended`` — the small-window economics
+of ``min_window``, not a fault.
 
 A store eviction (``StoreError``) inside a sweep is consensus semantics:
 the oracle carries that flush and it counts in ``fallbacks``, as does an
-admission slot file that cannot be opened. Every other failure — a kernel
-launch error, any CUDA error, a device OOM, a sweep still not done
-``readback_timeout_s`` after it was enqueued — propagates out of
-``flush``: on a card the kernels are the path, and a broken one is never
-turned into host consensus. The kernels are built when a CUDA
+admission slot file that cannot be opened. A window that went stale before
+its results could apply (``StaleWindowError``, or a generation moved on)
+is neutral: the oracle carries the flush and it counts in ``stale_drops``.
+Every other failure — a kernel launch error, any CUDA error, a device OOM,
+a sweep or batcher ticket still not done ``readback_timeout_s`` after it
+was enqueued — propagates out of ``flush``: on a card the kernels are the
+path, and a broken one is never turned into host consensus. The kernels are built when a CUDA
 TensorConsensus is constructed, so a build failure raises at start-up.
 """
 
@@ -47,8 +63,10 @@ import torch
 
 from babble_tpu_torch.common.breaker import CircuitBreaker
 from babble_tpu_torch.common.errors import StoreError
-from babble_tpu_torch.ops import kernels, voting
+from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+from babble_tpu_torch.ops import kernels, voting, window_state
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
+from babble_tpu_torch.ops.window_state import StaleWindowError, WindowState
 
 logger = logging.getLogger("babble_tpu_torch.hashgraph.accel")
 
@@ -165,19 +183,23 @@ def _reap_landed() -> None:
 
 
 class _Inflight:
-    """A launched sweep: its window, its output (a pinned host buffer being
-    filled behind ``done`` on a card; the finished output on the CPU), the
-    events that time it on the device, and the admission slot it holds
-    until the device is done with it."""
+    """A launched sweep: its window and resident snapshot, its output (a
+    pinned host buffer being filled behind ``done`` on a card; the finished
+    output on the CPU; a batcher ticket), the events that time it on the
+    device, and the admission slot it holds until the device is done with
+    it."""
 
-    __slots__ = ("win", "host", "done", "start", "t_enqueued", "slots",
-                 "t_acquired", "t_released", "perf")
+    __slots__ = ("win", "snap", "host", "done", "start", "ticket",
+                 "t_enqueued", "slots", "t_acquired", "t_released", "perf")
 
-    def __init__(self, win, host, done, start, t_enqueued: float, perf):
+    def __init__(self, win, host, done, start, t_enqueued: float, perf,
+                 snap=None, ticket=None):
         self.win = win
+        self.snap = snap  # the WindowState snapshot, or None
         self.host = host
         self.done = done  # torch.cuda.Event, or None on the CPU
         self.start = start  # torch.cuda.Event recorded before the upload
+        self.ticket = ticket  # the SweepBatcher's Ticket, or None
         self.t_enqueued = t_enqueued  # the host has handed the card all of it
         self.perf = perf
         self.slots = None
@@ -191,6 +213,8 @@ class _Inflight:
     def landed(self) -> bool:
         """True once the output is on the host. Never blocks; a CUDA error
         raises here."""
+        if self.ticket is not None:
+            return self.ticket.done.is_set()
         return self.done is None or self.done.query()
 
     def release_slot(self) -> None:
@@ -207,7 +231,10 @@ class _Inflight:
         return max(0.0, self.t_released - self.t_acquired)
 
     def device_seconds(self) -> Optional[float]:
-        """Upload + sweep + copy-out time on the device (once landed)."""
+        """Upload + sweep + copy-out time on the device (once landed); for
+        a batcher ticket, that of the sweep it rode, the whole batch's."""
+        if self.ticket is not None:
+            return self.ticket.device_s
         if self.done is None:
             return None
         return self.start.elapsed_time(self.done) / 1000.0
@@ -230,13 +257,11 @@ class TensorConsensus:
                  resident: bool | None = None,
                  clock=None,
                  owner: str | None = None):
-        for name, val in (("mesh", mesh is not None), ("batcher", batcher),
-                          ("resident", resident)):
-            if val:
-                raise NotImplementedError(
-                    f"TensorConsensus({name}=...) is not ported yet; see the "
-                    "port's queue in ROADMAP.md"
-                )
+        if mesh is not None:
+            raise NotImplementedError(
+                "TensorConsensus(mesh=...) is not ported yet; see the "
+                "port's queue in ROADMAP.md"
+            )
         self.device = resolve_device(device)
         self.owner = owner
         self._perf = (clock.perf_counter if clock is not None
@@ -245,6 +270,9 @@ class TensorConsensus:
         if self.device.type == "cuda":
             kernels.build()  # a build failure raises here, at start-up
             self._stream = torch.cuda.Stream(self.device)
+        # the sweep's programs, compiled once per process, here
+        voting.script_programs()
+        on_card = self.device.type == "cuda"
         # Force a sweep mid-batch once this many inserts accumulate, so the
         # window stays inside one shape bucket even under huge syncs. Normal
         # cadence is one sweep per gossip round (core.sync flush).
@@ -258,15 +286,32 @@ class TensorConsensus:
             if env is not None:
                 min_window = int(env)
             else:
-                min_window = 192 if self.device.type == "cuda" else 256
+                min_window = 192 if on_card else 256
         self.min_window = min_window
         # Pipelined sweeps hide the readback behind the next sync; on by
         # default on a card, BABBLE_ACCEL_PIPELINE=1/0 forces either way.
         if pipeline is None:
             env = os.environ.get("BABBLE_ACCEL_PIPELINE")
-            pipeline = (self.device.type == "cuda" if env is None
-                        else env == "1")
+            pipeline = on_card if env is None else env == "1"
         self.pipeline = pipeline
+        # Co-located batching through the process-wide SweepBatcher: on by
+        # default on a card, where one batched sweep for every node of a
+        # flush wave replaces one sweep per node; BABBLE_ACCEL_BATCH=1/0
+        # forces either way.
+        if batcher is None:
+            env = os.environ.get("BABBLE_ACCEL_BATCH")
+            batcher = on_card if env is None else env == "1"
+        self.batcher = batcher
+        # Incremental resident windows, on unless BABBLE_ACCEL_RESIDENT=0.
+        # With the batcher the host side stays incremental but windows are
+        # submitted as copies (a batched sweep stacks them; no per-node
+        # device buffers).
+        if resident is None:
+            resident = os.environ.get("BABBLE_ACCEL_RESIDENT") != "0"
+        self.resident = resident
+        self.window_state = WindowState() if resident else None
+        if resident:
+            window_state.script_programs()
         # A store eviction falls back to the oracle for its flush; repeated
         # ones open the breaker for a cooldown, then a probe sweep
         # re-enables the path.
@@ -277,16 +322,15 @@ class TensorConsensus:
         self.sweeps = 0
         self.fallbacks = 0
         self.small_windows = 0  # flushes routed to the oracle by min_window
-        self.stale_drops = 0  # in-flight sweeps dropped by invalidate()
+        self.stale_drops = 0  # sweeps dropped by invalidate() or as stale
         self.deferred = 0  # flushes that rode behind a running sweep
         self.contended = 0  # launches skipped: card at max in-flight sweeps
-        # Mechanisms the port has not got yet (compiles, resident windows,
-        # mesh padding): the node telemetry reads them under the JAX
-        # package's names, and they stay 0 / None.
+        self.rows_delta_total = 0  # window rows packed from the store
+        self.rows_reused_total = 0  # window rows kept from the last sweep
+        self.delta_sweeps = 0  # sweeps that uploaded only the delta
+        # The node telemetry reads these under the JAX package's names:
+        # the port compiles nothing while it runs, and has no mesh lane.
         self.compile_waits = 0
-        self.window_state = None
-        self.rows_delta_total = 0
-        self.rows_reused_total = 0
         self.mesh_pad_rows = 0
         self.mesh_fallbacks = 0
         # applied sweeps per window shape bucket (W, E, P, S, R)
@@ -295,16 +339,20 @@ class TensorConsensus:
         self.last_sweep_s = 0.0
         self.total_sweep_s = 0.0
         self.last_window_events = 0
-        # Per-stage rolling sums (seconds): build = host snapshot, dispatch
-        # = upload + enqueue, readback = until the output is on the host (a
+        # Per-stage rolling sums (seconds): build = a from-scratch window
+        # build, delta_scan + pack = the resident window's incremental
+        # snapshot, dispatch = upload + enqueue (a batcher submission's
+        # hand-off), readback = until the output is on the host (a
         # synchronous sweep waits for it; a pipelined one counts from the
-        # end of its enqueue to the flush that finds it landed), kernel =
-        # the sweep on the device (CUDA events on a card, from the upload
-        # to the copy-out, gaps in the host's enqueue included; the
-        # synchronous compute on the CPU), apply = host write-back.
+        # end of its enqueue, or its ticket's submission, to the flush that
+        # finds it landed), kernel = the sweep on the device (CUDA events on
+        # a card, from the upload to the copy-out, gaps in the host's
+        # enqueue included; the synchronous compute on the CPU; under the
+        # batcher, the batched sweep the window rode, shared by its B
+        # windows), apply = host write-back.
         self.stage_s = {
-            "build": 0.0, "dispatch": 0.0, "readback": 0.0, "kernel": 0.0,
-            "apply": 0.0,
+            "build": 0.0, "delta_scan": 0.0, "pack": 0.0, "dispatch": 0.0,
+            "readback": 0.0, "kernel": 0.0, "apply": 0.0,
         }
         # Of the pipelined sweeps' dispatch stage, the time the thread ran
         # on a CPU (the rest of its wall time it waited, for the GIL or a
@@ -340,7 +388,8 @@ class TensorConsensus:
     def invalidate(self) -> None:
         """Drop any in-flight sweep (hashgraph reset / fast-sync landing):
         its snapshot no longer describes this store. Its admission slot is
-        released now."""
+        released now, and the resident state rebuilds at the next
+        snapshot."""
         inf = self._inflight
         if inf is not None:
             self.stale_drops += 1
@@ -351,12 +400,29 @@ class TensorConsensus:
             self.breaker.cancel()
         self._inflight = None
         self._last_snapshot_topo = -1
+        if self.window_state is not None:
+            self.window_state.mark_dirty("invalidate")
 
     # -- flush entry point ---------------------------------------------------
 
     def flush(self, hg) -> bool:
         """Handle one consensus flush. Returns False when the caller must
-        run the oracle voting stages instead."""
+        run the oracle voting stages instead — and then marks the resident
+        state dirty, because the oracle pass that follows mutates fame and
+        round-received state the mirrors cannot track in O(ΔE)."""
+        # the hashgraph's delta channels (new witnesses, first-descendant
+        # updates) run exactly when a WindowState consumes them
+        hg._accel_track_delta = self.resident
+        handled = self._flush(hg)
+        if not handled and self.window_state is not None:
+            self.window_state.mark_dirty("oracle-pass")
+            # Discard the channels too: the rebuild that follows reads the
+            # store, and on a node whose windows never pass min_window no
+            # snapshot would ever drain them.
+            hg.drain_accel_delta()
+        return handled
+
+    def _flush(self, hg) -> bool:
         if not self.pipeline:
             if not self.use_device(len(hg.undetermined_events)):
                 return False
@@ -394,40 +460,108 @@ class TensorConsensus:
             return handled or launched
         return handled
 
+    # -- snapshots and dispatch ----------------------------------------------
+
+    def _snapshot(self, hg):
+        """This sweep's window: a from-scratch build, or — resident — an
+        O(ΔE) WindowState snapshot (copied rows for the batcher, whose sweep
+        outlives the snapshot). Returns (win, snap); win None when nothing
+        is undecided, snap None without resident windows."""
+        if self.window_state is None:
+            t0 = self._perf()
+            win = voting.build_voting_window(hg)
+            self._stage("build", self._perf() - t0)
+            return win, None
+        timers: dict = {}
+        try:
+            snap = self.window_state.snapshot(hg, timers,
+                                              copy_rows=self.batcher)
+        finally:
+            for k, v in timers.items():
+                self._stage(k, v)
+        if snap is None:
+            return None, None
+        self.rows_delta_total += snap.rows_delta
+        self.rows_reused_total += snap.rows_reused
+        return snap.win, snap
+
+    def _dispatch(self, win, snap):
+        """Enqueue one sweep on the current stream: through the resident
+        buffers with a WindowState snapshot, else a full upload. Returns
+        the unread output."""
+        if snap is None:
+            return voting.launch_sweep(win, self.device)
+        out, used_delta = self.window_state.dispatch(snap, self.device)
+        self.delta_sweeps += used_delta
+        return out
+
+    def _submit(self, win, snap):
+        """Hand the window to the process-wide batcher. Returns its ticket,
+        or None when the batcher is backlogged (``contended``: the oracle
+        carries the flush)."""
+        ticket = SweepBatcher.instance().submit(win, device=self.device)
+        if ticket is None:
+            self.contended += 1
+            if snap is not None:
+                # the snapshot's delta never reaches a sweep
+                self.window_state.drop_residency()
+            self.breaker.cancel()
+        return ticket
+
+    def _ticket_result(self, ticket):
+        """(fame, rr) of a done ticket, or None when it failed stale
+        (counted; the oracle carries the flush). A StoreError propagates as
+        a fallback; any other error — a CUDA one — raises."""
+        err = ticket.error
+        if err is None:
+            return ticket.result
+        if isinstance(err, StaleWindowError):
+            self.stale_drops += 1
+            self.breaker.cancel()
+            return None
+        raise err
+
     # -- pipelined internals -------------------------------------------------
 
-    def _build(self, hg):
-        t0 = self._perf()
-        win = voting.build_voting_window(hg)
-        self._stage("build", self._perf() - t0)
-        return win
-
-    def _enqueue(self, win) -> _Inflight:
+    def _enqueue(self, win, snap) -> _Inflight:
         """Launch the sweep without waiting for it: on a card, on the side
         stream with a non-blocking copy into pinned host memory behind a
         recorded event; on the CPU the sweep is done when this returns."""
         if self._stream is None:
-            out = voting.launch_sweep(win, self.device)
-            return _Inflight(win, out, None, None, self._perf(), self._perf)
+            out = self._dispatch(win, snap)
+            return _Inflight(win, out, None, None, self._perf(), self._perf,
+                             snap=snap)
         with torch.cuda.stream(self._stream):
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
             start.record(self._stream)
-            out = voting.launch_sweep(win, self.device)
+            out = self._dispatch(win, snap)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             done.record(self._stream)
-        return _Inflight(win, host, done, start, self._perf(), self._perf)
+        return _Inflight(win, host, done, start, self._perf(), self._perf,
+                         snap=snap)
 
     def _launch(self, hg) -> bool:
         try:
-            win = self._build(hg)
+            win, snap = self._snapshot(hg)
         except StoreError as err:
             self._note_fallback(err)
             return False
         if win is None:
             self.breaker.cancel()  # no device attempt to judge
             return True  # nothing undecided
+        if self.batcher:
+            # the batcher's backpressure replaces the admission slots
+            t_d = self._perf()
+            ticket = self._submit(win, snap)
+            if ticket is None:
+                return False
+            self._stage("dispatch", self._perf() - t_d)
+            self._inflight = _Inflight(win, None, None, None, self._perf(),
+                                       self._perf, snap=snap, ticket=ticket)
+            self._last_snapshot_topo = hg.topological_index
+            return True
         # Admission covers only device occupancy: the window build above
         # runs slot-free so co-located nodes aren't starved during host
         # work.
@@ -444,11 +578,13 @@ class TensorConsensus:
             return False
         if not acquired:
             self.contended += 1
+            if snap is not None:
+                self.window_state.drop_residency()
             self.breaker.cancel()
             return False
         t_d, c_d = self._perf(), time.thread_time()
         try:
-            inf = self._enqueue(win)
+            inf = self._enqueue(win, snap)
         except BaseException:
             slots.release()
             raise
@@ -462,11 +598,22 @@ class TensorConsensus:
         return True
 
     def _apply(self, hg, inf: _Inflight) -> bool:
+        if inf.ticket is not None:
+            try:
+                result = self._ticket_result(inf.ticket)
+            except StoreError as err:
+                self._note_fallback(err)
+                return False
+            if result is None:
+                return False
+            fame, rr = result
+        else:
+            fame, rr = voting.read_sweep(inf.host, inf.win)
+        if not self._current(inf.snap):
+            return False
         try:
             t_a = self._perf()
-            fame, rr = voting.read_sweep(inf.host, inf.win)
-            voting.apply_fame(hg, inf.win, fame)
-            voting.apply_round_received(hg, inf.win, rr)
+            self._write_back(hg, inf.win, inf.snap, fame, rr)
             t_apply = self._perf() - t_a
             kernel_s = inf.device_seconds()
         except StoreError as err:
@@ -478,6 +625,23 @@ class TensorConsensus:
         self._success(inf.win, (kernel_s or 0.0) + t_apply)
         return True
 
+    def _current(self, snap) -> bool:
+        """False (counted as stale) when the resident state moved on since
+        ``snap`` was taken: its row maps no longer describe the results,
+        which are discarded; the dirty state rebuilds at the next
+        snapshot."""
+        if snap is None or snap.generation == self.window_state.generation:
+            return True
+        self.stale_drops += 1
+        self.breaker.cancel()  # not the device's fault: no verdict
+        return False
+
+    def _write_back(self, hg, win, snap, fame, rr) -> None:
+        _decided, fame_applied = voting.apply_fame(hg, win, fame)
+        received = voting.apply_round_received(hg, win, rr)
+        if snap is not None:
+            self.window_state.note_applied(fame_applied, received)
+
     # -- synchronous sweep ---------------------------------------------------
 
     def sweep(self, hg) -> bool:
@@ -485,20 +649,39 @@ class TensorConsensus:
         fall back to the oracle pipeline."""
         t0 = self._perf()
         try:
-            win = self._build(hg)
+            win, snap = self._snapshot(hg)
             if win is None:
                 self.breaker.cancel()  # no device attempt to judge
                 return True  # nothing undecided
             t1 = self._perf()
-            out = voting.launch_sweep(win, self.device)
-            t_r = self._perf()
-            self._stage("dispatch", t_r - t1)
-            fame, rr = voting.read_sweep(out, win)
+            if self.batcher:
+                # co-located threads flushing in the same wave share the
+                # batched sweep
+                ticket = self._submit(win, snap)
+                if ticket is None:
+                    return False
+                t_r = self._perf()
+                self._stage("dispatch", t_r - t1)
+                if not ticket.done.wait(self.readback_timeout_s):
+                    raise TimeoutError(
+                        f"batched sweep of {self.owner or 'this node'} not "
+                        f"done {self.readback_timeout_s:.0f} s after it was "
+                        "submitted")
+                result = self._ticket_result(ticket)
+                if result is None:
+                    return False
+                fame, rr = result
+                kernel_s = ticket.device_s
+            else:
+                out = self._dispatch(win, snap)
+                t_r = self._perf()
+                self._stage("dispatch", t_r - t1)
+                fame, rr = voting.read_sweep(out, win)
+                kernel_s = None
             t2 = self._perf()
             self._stage("readback", t2 - t_r)
-            self._stage("kernel", t2 - t1)
-            voting.apply_fame(hg, win, fame)
-            voting.apply_round_received(hg, win, rr)
+            self._stage("kernel", t2 - t1 if kernel_s is None else kernel_s)
+            self._write_back(hg, win, snap, fame, rr)
             self._stage("apply", self._perf() - t2)
         except StoreError as err:
             self._note_fallback(err)
@@ -520,6 +703,10 @@ class TensorConsensus:
         # read (see apply_round_received), making the oracle re-run safe.
         self.fallbacks += 1
         self.breaker.record_failure()
+        if self.window_state is not None:
+            # the oracle pass that follows mutates state the mirrors cannot
+            # track; the next snapshot must rebuild
+            self.window_state.mark_dirty("fallback")
         logger.warning("accelerated sweep of %s fell back to oracle: %s",
                        self.owner or "this node", err)
 
@@ -533,6 +720,7 @@ class TensorConsensus:
             # which strongly-see path the sweep runs: the CUDA kernel K1 on
             # a card, its plain PyTorch version on the CPU
             "accel_kernel": "cuda" if self.device.type == "cuda" else "plain",
+            "accel_batcher": self.batcher,
             "accel_sweeps": self.sweeps,
             "accel_fallbacks": self.fallbacks,
             "accel_small_windows": self.small_windows,
@@ -547,13 +735,26 @@ class TensorConsensus:
             "accel_buckets": {
                 "x".join(map(str, k)): n for k, n in self.buckets.items()
             },
+            # Per-stage totals: the snapshot is build (from-scratch
+            # builds) + delta_scan + pack (resident snapshots).
             "accel_stage_ms": {
                 k: round(1000.0 * v, 1) for k, v in self.stage_s.items()
             },
             "accel_dispatch_cpu_ms": round(1000.0 * self.dispatch_cpu_s, 1),
             "accel_slot_held_ms": round(1000.0 * self.slot_held_s, 1),
+            # Resident windows: rows packed from the store against rows
+            # kept from the last sweep, from-scratch rebuilds, and sweeps
+            # that uploaded only the delta to the resident buffers.
+            "accel_resident": self.resident,
+            "accel_rows_delta": self.rows_delta_total,
+            "accel_rows_reused": self.rows_reused_total,
+            "accel_rebuilds": (self.window_state.rebuilds
+                               if self.window_state is not None else 0),
+            "accel_delta_sweeps": self.delta_sweeps,
         }
         # circuit-breaker surface: accel_breaker_state/open/probes/skips/
         # failures
         out.update(self.breaker.stats(prefix="accel_breaker_"))
+        if self.batcher:
+            out.update(SweepBatcher.instance().stats())
         return out

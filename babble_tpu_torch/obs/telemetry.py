@@ -328,11 +328,17 @@ class NodeTelemetry:
             "accel_mesh_fallbacks_total", lambda: accel.mesh_fallbacks
         )
 
-        # The coprocessor gauges read the sweep batcher, which the port
-        # has not got yet: they report 0.
-        self._func("copro_waves_total", lambda: 0)
-        self._func("copro_windows_total", lambda: 0)
-        self._func("copro_validators", lambda: 0)
+        def _copro(key: str, default=0):
+            from ..hashgraph.sweep_batcher import SweepBatcher
+
+            b = SweepBatcher._instance
+            return b.stats().get(key, default) if b is not None else default
+
+        self._func("copro_waves_total", lambda: _copro("copro_waves"))
+        self._func("copro_windows_total", lambda: _copro("copro_windows"))
+        self._func(
+            "copro_validators", lambda: _copro("copro_validators")
+        )
         self._func(
             "accel_breaker_state",
             lambda: {"closed": 0, "half_open": 1, "open": 2}.get(

@@ -90,7 +90,8 @@ def build() -> str:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.bt_member_ss_counts.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         lib.bt_member_ss_counts.restype = ctypes.c_int
         lib.bt_strongly_see.argtypes = [ctypes.c_void_p] * 3 + [
@@ -98,8 +99,9 @@ def build() -> str:
             ctypes.c_void_p,
         ]
         lib.bt_strongly_see.restype = ctypes.c_int
+        lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 3
+        lib.bt_strongly_see_tile.argtypes = [ctypes.c_int] * 2
         for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile):
-            fn.argtypes = [ctypes.c_int, ctypes.c_int]
             fn.restype = ctypes.c_int
         _lib = lib
     return so
@@ -121,11 +123,13 @@ MEMBER_SS_MAX_P = 2**24
 
 def member_ss_counts_plain(la: torch.Tensor, fd: torch.Tensor,
                            member: torch.Tensor) -> torch.Tensor:
-    """counts[s, v, w] = sum_p member[s, p] * (la[v, p] >= fd[w, p]), as a
-    broadcast compare masked by membership and summed over p — no integer
-    matmul, which CUDA does not have."""
-    ge = la[:, None, :] >= fd[None, :, :]  # [V, W, P]
-    return (ge[None] & member[:, None, None, :]).sum(-1, dtype=torch.int32)
+    """counts[..., s, v, w] = sum_p member[..., s, p] * (la[..., v, p] >=
+    fd[..., w, p]), as a broadcast compare masked by membership and summed
+    over p — no integer matmul, which CUDA does not have. [W, P] inputs
+    give [S, W, W]; a leading batch axis [B, W, P] gives [B, S, W, W]."""
+    ge = la[..., :, None, :] >= fd[..., None, :, :]  # [..., V, W, P]
+    return (ge[..., None, :, :, :] & member[..., :, None, None, :]).sum(
+        -1, dtype=torch.int32)
 
 
 def _check_member_ss(la, fd, member) -> None:
@@ -133,14 +137,17 @@ def _check_member_ss(la, fd, member) -> None:
         raise TypeError(f"la/fd must be int32, got {la.dtype}/{fd.dtype}")
     if member.dtype != torch.bool:
         raise TypeError(f"member must be bool, got {member.dtype}")
-    if la.dim() != 2 or fd.shape != la.shape:
+    if la.dim() not in (2, 3) or fd.shape != la.shape:
         raise ValueError(
-            f"la and fd must both be [W, P], got {tuple(la.shape)} and "
-            f"{tuple(fd.shape)}"
+            f"la and fd must both be [W, P] or [B, W, P], got "
+            f"{tuple(la.shape)} and {tuple(fd.shape)}"
         )
-    if member.dim() != 2 or member.shape[1] != la.shape[1]:
+    if (member.dim() != la.dim() or member.shape[-1] != la.shape[-1]
+            or member.shape[:-2] != la.shape[:-2]):
+        want = "[S, P]" if la.dim() == 2 else f"[B={la.shape[0]}, S, P]"
         raise ValueError(
-            f"member must be [S, P={la.shape[1]}], got {tuple(member.shape)}"
+            f"member must be {want} with P={la.shape[-1]}, got "
+            f"{tuple(member.shape)}"
         )
     if not (la.device == fd.device == member.device):
         raise ValueError("la, fd and member must be on one device")
@@ -148,8 +155,10 @@ def _check_member_ss(la, fd, member) -> None:
 
 def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
                      member: torch.Tensor) -> torch.Tensor:
-    """K1. int32 [S, W, W] strongly-see counts per peer-set slot. CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    """K1. int32 [S, W, W] strongly-see counts per peer-set slot from
+    [W, P] coordinates, or [B, S, W, W] from a batch of windows ([B, W, P]
+    coordinates, [B, S, P] membership) in one launch. CPU tensors take the
+    plain version; CUDA tensors launch the kernel.
 
     Both compute the product by ``member`` exactly for every int32 value.
     The JAX package's Pallas kernel folds membership into fd as INT32_MAX
@@ -163,15 +172,21 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
     if not (la.is_contiguous() and fd.is_contiguous()
             and member.is_contiguous()):
         raise ValueError("member_ss_counts: inputs must be contiguous")
-    W, P = la.shape
-    S = member.shape[0]
+    *batch, W, P = la.shape
+    B = batch[0] if batch else 1
+    S = member.shape[-2]
     if P > MEMBER_SS_MAX_P:
         raise ValueError(
             f"member_ss_counts: P={P} exceeds {MEMBER_SS_MAX_P}, the largest "
             "peer axis the kernel's float32 counters hold exactly"
         )
-    out = torch.empty((S, W, W), dtype=torch.int32, device=la.device)
-    if W == 0 or S == 0:
+    groups = S // 2 if S % 2 == 0 else S  # slot groups a window
+    if B * groups > 65535 or B * W > 2**31 - 1:
+        raise ValueError(f"member_ss_counts: batch {B} of {S} slots and "
+                         f"{W} voters exceeds the grid's 65535 layers or "
+                         "int32 rows")
+    out = torch.empty((*batch, S, W, W), dtype=torch.int32, device=la.device)
+    if W == 0 or S == 0 or B == 0:
         return out
     if _lib is None:
         build()
@@ -179,7 +194,7 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
         stream = torch.cuda.current_stream(la.device).cuda_stream
         rc = _lib.bt_member_ss_counts(
             la.data_ptr(), fd.data_ptr(), member.data_ptr(), out.data_ptr(),
-            W, P, S, stream,
+            B, W, P, S, stream,
         )
     _check_launch(rc, "member_ss_counts")
     with _count_lock:
@@ -188,6 +203,17 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
 
 
 member_ss_counts.launches = 0
+
+
+# K1 as an operator of PyTorch's dispatcher,
+# torch.ops.babble_tpu_torch.member_ss_counts, so that the scripted fused
+# sweep (ops/voting.py) can call it: the dispatcher calls back into
+# ``member_ss_counts`` (looked up at each call) for CPU and CUDA tensors.
+_OPS = torch.library.Library("babble_tpu_torch", "DEF")
+_OPS.define("member_ss_counts(Tensor la, Tensor fd, Tensor member) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _OPS.impl("member_ss_counts",
+              lambda la, fd, member: member_ss_counts(la, fd, member), _key)
 
 
 # =============================================================================
@@ -270,12 +296,12 @@ def strongly_see(la: torch.Tensor, fd: torch.Tensor,
 strongly_see.launches = 0
 
 
-def member_ss_tile(W: int, S: int) -> int:
-    """Side of the output tile (32 or 128) K1 takes at (W, S); builds the
-    library if needed."""
+def member_ss_tile(W: int, S: int, B: int = 1) -> int:
+    """Side of the output tile (32 or 128) K1 takes for B windows at
+    (W, S); builds the library if needed."""
     if _lib is None:
         build()
-    return _lib.bt_member_ss_tile(W, S)
+    return _lib.bt_member_ss_tile(B, W, S)
 
 
 def strongly_see_tile(E: int, B: int) -> int:

@@ -16,11 +16,15 @@ round: the peer axis spans the whole repertoire and each round carries a
 peer-set slot (``psi``) selecting a membership mask and super-majority.
 
 The whole sweep is one device program returning one int32 vector
-``[fame | round_received]``, so a sweep costs one readback. PyTorch runs
-eagerly: each ``lax.fori_loop`` of the reference is a Python loop over the
-bucketed round axis, and every per-round index is a tensor view, so the
-loop never waits for the device. The strongly-see counts go through the
-hand-written kernel K1 (``ops/kernels.member_ss_counts``).
+``[fame | round_received]``, so a sweep costs one readback. It is written
+once, on a leading batch axis of windows: a single sweep is the batch of
+one, and the sweep batcher (``hashgraph/sweep_batcher.py``) stacks
+co-located validators' windows where the JAX package vmaps the program.
+PyTorch runs eagerly: each ``lax.fori_loop`` of the reference is a Python
+loop over the bucketed round axis, and every per-round index is a tensor
+view or a batch-indexed gather, so the loop never waits for the device.
+The strongly-see counts go through the hand-written kernel K1
+(``ops/kernels.member_ss_counts``), one launch per batch.
 
 Shapes are padded to the reference's buckets (W, E, R and S to powers of
 two, P to a multiple of 8). Padding rows are neutral and give exactly the
@@ -29,16 +33,18 @@ values the JAX package gives, so whole padded vectors compare bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
+import threading
+import warnings
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from babble_tpu_torch.common.errors import StoreError
 from babble_tpu_torch.common.trilean import Trilean
-from babble_tpu_torch.ops.intdot import vote_matmul
-from babble_tpu_torch.ops.kernels import member_ss_counts
+from babble_tpu_torch.ops import kernels  # registers K1's operator
 
 INT32_MAX = np.int32(2**31 - 1)
 
@@ -99,6 +105,13 @@ class VotingWindow:
     row: Dict[str, int] = field(default_factory=dict)
     wit_hashes: List[str] = field(default_factory=list)  # real W rows
     wit_row: Dict[str, int] = field(default_factory=dict)
+    # Resident-window provenance (ops/window_state.py): windows snapshotted
+    # from a persistent WindowState carry the state's generation at
+    # snapshot time and the state itself, so that the sweep batcher and
+    # TensorConsensus can tell that the state mutated under them and
+    # discard the results instead of applying them through moved row maps.
+    generation: int = 0
+    state: Optional[object] = None
 
     @property
     def n_events(self) -> int:
@@ -107,6 +120,29 @@ class VotingWindow:
     @property
     def n_witnesses(self) -> int:
         return int(self.wit_idx.shape[0])
+
+
+# Each field's axes in a bucket (W, E, P, S, R) and its neutral fill: what
+# padding rows hold (build_voting_window, repad_window, dummy_window).
+_FIELD_LAYOUT = {
+    "creator": ("E", 0), "index": ("E", -1), "rounds": ("E", -10),
+    "undet": ("E", False), "wit_idx": ("W", 0), "la_w": ("WP", -1),
+    "fd_w": ("WP", int(INT32_MAX)), "rounds_w": ("W", -10),
+    "valid_w": ("W", False), "fame0_w": ("W", 0), "mid_w": ("W", False),
+    "member": ("SP", False), "sm_s": ("S", 2**30), "psi": ("R", 0),
+    "sm_r": ("R", 2**30), "exists_r": ("R", False),
+    "prior_dec_r": ("R", False), "lb_gate_r": ("R", False),
+}
+
+def _filled(f: str, key: tuple, *batch: int) -> np.ndarray:
+    """A numpy array of field ``f`` at bucket ``key`` (with a leading
+    ``batch`` axis, if given) holding only the field's neutral fill."""
+    W, E, P, S, R = key
+    axes, fill = _FIELD_LAYOUT[f]
+    shape = {"E": (E,), "W": (W,), "WP": (W, P), "S": (S,), "SP": (S, P),
+             "R": (R,)}[axes]
+    return np.full((*batch, *shape), fill,
+                   dtype=bool if isinstance(fill, bool) else np.int32)
 
 
 # VotingWindow attribute names in _sweep_core's positional order (rounds /
@@ -123,55 +159,74 @@ WIN_FIELDS = (
 # =============================================================================
 
 
-def _fame_core(creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
-               wit_idx, member, sm_s, psi, sm_r):
+def _fame_core(creator: torch.Tensor, index: torch.Tensor,
+               la_w: torch.Tensor, fd_w: torch.Tensor,
+               rounds_w: torch.Tensor, valid_w: torch.Tensor,
+               fame0_w: torch.Tensor, mid_w: torch.Tensor,
+               wit_idx: torch.Tensor, member: torch.Tensor,
+               sm_s: torch.Tensor, psi: torch.Tensor,
+               sm_r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Virtual voting on the witness axis (oracle: hashgraph.go:875-998)
-    with per-round peer-sets. Returns (see_we, fame_w); ``see_we`` ([W, E],
-    witness w sees event x) feeds the round-received stage."""
-    R = psi.shape[0]
-    W = rounds_w.shape[0]
+    with per-round peer-sets, over a leading batch axis B of windows.
+    Returns (see_we, fame_w); ``see_we`` ([B, W, E], witness w sees event
+    x) feeds the round-received stage."""
+    B, W = rounds_w.shape
+    E = creator.shape[1]
+    R = psi.shape[1]
     psi_l = psi.long()
+    b_ax = torch.arange(B, device=psi.device)
 
     # SEE[w, x] = w sees x via lastAncestors (oracle: hashgraph.go:96-128).
-    see_we = (la_w[:, creator.long()] >= index[None, :]) & valid_w[:, None]
-    see_ww = see_we[:, wit_idx.long()]  # witness-to-witness visibility
+    la_creator = torch.gather(la_w, 2, creator.long()[:, None, :].expand(
+        B, W, E))
+    see_we = (la_creator >= index[:, None, :]) & valid_w[:, :, None]
+    # witness-to-witness visibility
+    see_ww = torch.gather(see_we, 2, wit_idx.long()[:, None, :].expand(
+        B, W, W))
 
     # SS[s, w, w'] per peer-set slot (oracle: hashgraph.go:172-206 with the
-    # per-round peer-set argument), counted by K1.
-    counts = member_ss_counts(la_w, fd_w, member)
-    ss_all = counts >= sm_s[:, None, None]  # [S, W, W]
+    # per-round peer-set argument), counted by K1 in one launch for the
+    # whole batch.
+    counts = torch.ops.babble_tpu_torch.member_ss_counts(la_w, fd_w, member)
+    ss_all = counts >= sm_s[:, :, None, None]  # [B, S, W, W]
 
-    votes = torch.zeros((W, W), dtype=torch.bool, device=rounds_w.device)
+    votes = torch.zeros((B, W, W), dtype=torch.bool, device=rounds_w.device)
     fame = fame0_w
     # The reference clips j-1 and j into [0, R-1]; over j in [1, R) both
     # already lie there, so plain slices (views, no host sync) select them.
     for j in range(1, R):
-        voter = valid_w & (rounds_w == j)  # [W(y)]
-        diff = j - rounds_w  # [W(x)] per candidate
+        voter = valid_w & (rounds_w == j)  # [B, W(y)]
+        diff = j - rounds_w  # [B, W(x)] per candidate
 
         # Derived vote: majority among strongly-seen witnesses of j-1,
         # evaluated against round j-1's peer-set (hashgraph.go:928-948).
         prev_w = valid_w & (rounds_w == (j - 1))
-        ss_prev = ss_all.index_select(0, psi_l[j - 1:j])[0] & prev_w[None, :]
-        n_ss = ss_prev.sum(dim=1, dtype=torch.int32)
-        yays = vote_matmul(ss_prev, votes)  # exact 0/1 tally
-        nays = n_ss[:, None] - yays
+        ss_prev = ss_all[b_ax, psi_l[:, j - 1]] & prev_w[:, None, :]
+        n_ss = ss_prev.sum(dim=2, dtype=torch.int32)
+        # exact 0/1 tally: a float32 product of 0/1 matrices is exact below
+        # 2^24 (ops/intdot.py; run_scripted turns TF32 off)
+        yays = torch.matmul(ss_prev.to(torch.float32),
+                            votes.to(torch.float32)).to(torch.int32)
+        nays = n_ss[:, :, None] - yays
         v = yays >= nays
         t = torch.maximum(yays, nays)
-        settled = t >= sm_r[j]  # round j's super-majority
+        settled = t >= sm_r[:, j, None, None]  # round j's super-majority
 
         # floor modulo, as jnp's % on negative diff
-        is_coin = torch.remainder(diff, COIN_ROUND_FREQ) == 0
-        derived = torch.where(is_coin[None, :] & ~settled, mid_w[:, None], v)
-        new_vote = torch.where((diff == 1)[None, :], see_ww, derived)
+        # COIN_ROUND_FREQ (TorchScript takes no global int)
+        is_coin = torch.remainder(diff, 4) == 0
+        derived = torch.where(is_coin[:, None, :] & ~settled,
+                              mid_w[:, :, None], v)
+        new_vote = torch.where((diff == 1)[:, None, :], see_ww, derived)
 
-        active = voter[:, None] & valid_w[None, :] & (diff >= 1)[None, :]
+        active = (voter[:, :, None] & valid_w[:, None, :]
+                  & (diff >= 1)[:, None, :])
         votes = torch.where(active, new_vote, votes)
 
-        decide_pair = (active & ~is_coin[None, :] & (diff > 1)[None, :]
+        decide_pair = (active & ~is_coin[:, None, :] & (diff > 1)[:, None, :]
                        & settled)
-        decided_now = decide_pair.any(dim=0)
-        decided_val = (decide_pair & v).any(dim=0)
+        decided_now = decide_pair.any(dim=1)
+        decided_val = (decide_pair & v).any(dim=1)
         newly = decided_now & (fame == 0)
         fame = fame.masked_fill(newly & decided_val, 1).masked_fill(
             newly & ~decided_val, -1
@@ -179,35 +234,49 @@ def _fame_core(creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
     return see_we, fame
 
 
-def _rr_core(see_we, rounds_w, valid_w, fame_w, rounds_e, undet_e,
-             decided_r, hard_block_r, sm_r):
-    """Round-received (oracle: hashgraph.go:1002-1095). ``decided_r`` and
-    ``hard_block_r`` carry the oracle's exact scan semantics: an event's
-    ascending round scan stops at the first hard-blocking round after its
-    own and receives only at decided rounds."""
-    E = rounds_e.shape[0]
-    R = decided_r.shape[0]
-    rr = torch.full((E,), -1, dtype=torch.int32, device=rounds_e.device)
-    blocked = torch.zeros(E, dtype=torch.bool, device=rounds_e.device)
+def _rr_core(see_we: torch.Tensor, rounds_w: torch.Tensor,
+             valid_w: torch.Tensor, fame_w: torch.Tensor,
+             rounds_e: torch.Tensor, undet_e: torch.Tensor,
+             decided_r: torch.Tensor, hard_block_r: torch.Tensor,
+             sm_r: torch.Tensor) -> torch.Tensor:
+    """Round-received (oracle: hashgraph.go:1002-1095) over a leading batch
+    axis. ``decided_r`` and ``hard_block_r`` carry the oracle's exact scan
+    semantics: an event's ascending round scan stops at the first
+    hard-blocking round after its own and receives only at decided
+    rounds."""
+    B, E = rounds_e.shape
+    R = decided_r.shape[1]
+    rr = torch.full((B, E), -1, dtype=torch.int32, device=rounds_e.device)
+    blocked = torch.zeros((B, E), dtype=torch.bool, device=rounds_e.device)
     for i in range(1, R):
         fw = valid_w & (rounds_w == i) & (fame_w == 1)  # famous witnesses
-        n_fw = fw.sum(dtype=torch.int32)
-        sees_x = see_we | (~fw)[:, None]
-        all_see = sees_x.all(dim=0) & (n_fw >= sm_r[i])
+        n_fw = fw.sum(dim=1, dtype=torch.int32)
+        sees_x = see_we | (~fw)[:, :, None]
+        all_see = sees_x.all(dim=1) & (n_fw >= sm_r[:, i])[:, None]
         relevant = rounds_e < i
         eligible = (
-            decided_r[i] & ~blocked & relevant & (rr < 0) & all_see & undet_e
+            decided_r[:, i, None] & ~blocked & relevant & (rr < 0) & all_see
+            & undet_e
         )
         rr = rr.masked_fill(eligible, i)
-        blocked = blocked | (relevant & hard_block_r[i])
+        blocked = blocked | (relevant & hard_block_r[:, i, None])
     return rr
 
 
-def _sweep_core(creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
-                wit_idx, member, sm_s, psi, sm_r,
-                rounds_e, undet_e, exists_r, prior_dec_r, lb_gate_r):
-    """The fused sweep: fame voting → per-round decidedness → round-received,
-    one int32 output vector ``[fame | rr]``.
+def _sweep_core(creator: torch.Tensor, index: torch.Tensor,
+                la_w: torch.Tensor, fd_w: torch.Tensor,
+                rounds_w: torch.Tensor, valid_w: torch.Tensor,
+                fame0_w: torch.Tensor, mid_w: torch.Tensor,
+                wit_idx: torch.Tensor, member: torch.Tensor,
+                sm_s: torch.Tensor, psi: torch.Tensor, sm_r: torch.Tensor,
+                rounds_e: torch.Tensor, undet_e: torch.Tensor,
+                exists_r: torch.Tensor, prior_dec_r: torch.Tensor,
+                lb_gate_r: torch.Tensor) -> torch.Tensor:
+    """The fused sweep over a leading batch axis of windows: fame voting →
+    per-round decidedness → round-received, one int32 output ``[B, W + E]``
+    (``[fame | rr]`` per window). Windows never mix: row b of the output is
+    window b's single sweep (the JAX package vmaps the same program,
+    babble_tpu/ops/voting.py:319-323).
 
     Decidedness replicates ``RoundInfo.witnesses_decided`` (roundInfo.go:
     78-96): a round is decided when no witness is UNDEFINED and the decided
@@ -218,23 +287,130 @@ def _sweep_core(creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
         creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
         wit_idx, member, sm_s, psi, sm_r,
     )
-    R = psi.shape[0]
+    R = psi.shape[1]
     r_ax = torch.arange(R, dtype=torch.int32, device=psi.device)
-    m_rw = valid_w[None, :] & (rounds_w[None, :] == r_ax[:, None])  # [R, W]
+    # [B, R, W]: witness w is valid and of round r
+    m_rw = valid_w[:, None, :] & (rounds_w[:, None, :] == r_ax[None, :, None])
     undecided_w = fame == 0
-    has_undec = (m_rw & undecided_w[None, :]).any(dim=1)
-    cnt = (m_rw & ~undecided_w[None, :]).sum(dim=1, dtype=torch.int32)
+    has_undec = (m_rw & undecided_w[:, None, :]).any(dim=2)
+    cnt = (m_rw & ~undecided_w[:, None, :]).sum(dim=2, dtype=torch.int32)
     decided_r = prior_dec_r | (exists_r & ~has_undec & (cnt >= sm_r))
     hard_block_r = ~exists_r | (~decided_r & lb_gate_r)
     rr = _rr_core(see_we, rounds_w, valid_w, fame, rounds_e, undet_e,
                   decided_r, hard_block_r, sm_r)
-    return torch.cat([fame, rr])
+    return torch.cat([fame, rr], dim=1)
+
+
+def _launch_core(fields: List[torch.Tensor], device: torch.device,
+                 single: bool) -> torch.Tensor:
+    """The 18 fields in WIN_FIELDS order uploaded to ``device`` (a no-op
+    for tensors already there) and swept; ``single`` adds and drops the
+    batch axis of one window."""
+    t: List[torch.Tensor] = []
+    for f in fields:
+        x = f.to(device)
+        t.append(x.unsqueeze(0) if single else x)
+    out = _sweep_core(t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8],
+                      t[9], t[10], t[11], t[12], t[13], t[14], t[15], t[16],
+                      t[17])
+    return out[0] if single else out
+
+
+_scripts: dict = {}
+_script_lock = threading.Lock()
+
+
+def scripted(fn):
+    """``fn`` compiled by TorchScript, once per process (some seconds of
+    Python; TensorConsensus compiles the sweep's programs at construction,
+    so that no flush waits for it). A scripted program runs its
+    operations in C++ with the GIL released, where eager code hands the
+    GIL back and retakes it around each one, and among co-located nodes'
+    threads each retake waits (PERF.md §5)."""
+    with _script_lock:
+        if fn not in _scripts:
+            with warnings.catch_warnings():
+                # deprecated in favour of torch.compile, which would
+                # generate kernels of its own; the port wants the
+                # operations as written
+                warnings.simplefilter("ignore", DeprecationWarning)
+                _scripts[fn] = torch.jit.script(fn)
+        return _scripts[fn]
+
+
+def run_scripted(fn, device: torch.device, witnesses: int, *args):
+    """Enqueue the scripted ``fn(*args)``, a program ending in the fused
+    sweep over ``witnesses`` witness rows, on the current stream of
+    ``device``. The executor's optimizations are off, so the program runs
+    the operations as written, K1 among them through its dispatcher
+    operator."""
+    program = scripted(fn)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if witnesses >= 1 << 24:
+        raise ValueError("witness axis >= 2**24: the float32 tally is not "
+                         "exact")
+    with torch.jit.optimized_execution(False):
+        return program(*args)
+
+
+def script_programs() -> None:
+    """Compile the sweep's program (see ``scripted``)."""
+    scripted(_launch_core)
+
+
+def _sweep(fields: List[torch.Tensor], device: torch.device,
+           single: bool) -> torch.Tensor:
+    """The scripted upload and fused sweep (``_launch_core``)."""
+    return run_scripted(_launch_core, device, fields[2].shape[-2], fields,
+                        device, single)
 
 
 def launch_sweep(win: VotingWindow, device: torch.device) -> torch.Tensor:
     """Upload the window to ``device`` and enqueue the fused sweep on the
-    current stream. Returns the [W + E] int32 output without reading it."""
-    return _sweep_core(*(getattr(win, f).to(device) for f in WIN_FIELDS))
+    current stream: the batched program at B = 1. Returns the [W + E]
+    int32 output without reading it."""
+    return _sweep([getattr(win, f) for f in WIN_FIELDS], device, True)
+
+
+def launch_batched(wins: List[VotingWindow], device: torch.device,
+                   key: Optional[tuple] = None) -> torch.Tensor:
+    """Stack windows on a leading batch axis, each padded to the bucket
+    ``key`` (default: the first window's) with ``repad_window``'s neutral
+    fills, upload them to ``device`` and enqueue ONE fused sweep over all
+    of them (one K1 launch) on the current stream. Returns the
+    [B, W + E] output of ``key``'s W and E without reading it.
+
+    The padded stack is assembled in numpy, field by field: a repad and a
+    stack through torch would cost two calls per field and window, each of
+    which hands the GIL back and waits to retake it.
+
+    Only the real windows are stacked: the JAX package pads every batch to
+    a fixed B with all-invalid dummies so that one compiled program serves
+    every wave; eager PyTorch compiles nothing, so padding would be work for
+    nothing."""
+    key = key if key is not None else bucket_key(wins[0])
+    stacked = []
+    for f in WIN_FIELDS:
+        a = _filled(f, key, len(wins))
+        for b, w in enumerate(wins):
+            src = getattr(w, f).numpy()
+            a[(b, *(slice(0, n) for n in src.shape))] = src
+        stacked.append(torch.from_numpy(a))
+    return _sweep(stacked, device, False)
+
+
+def read_batched(out, wins: List[VotingWindow], key: Optional[tuple] = None):
+    """One readback of a [B, W + E] batched output (a tensor, or its host
+    copy), split into per-window (fame, rr) numpy arrays over each window's
+    own rows; ``key`` is the bucket the batch was padded to (default: each
+    window's own)."""
+    host = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    res = []
+    for i, w in enumerate(wins):
+        W = key[0] if key is not None else w.n_witnesses
+        res.append((host[i, :w.n_witnesses], host[i, W:W + w.n_events]))
+    return res
 
 
 def read_sweep(out, win: VotingWindow):
@@ -248,6 +424,16 @@ def read_sweep(out, win: VotingWindow):
 def run_sweep(win: VotingWindow, device: torch.device):
     """Synchronous fused sweep: launch + one readback."""
     return read_sweep(launch_sweep(win, device), win)
+
+
+def dummy_window(W: int, E: int, P: int, S: int, R: int) -> VotingWindow:
+    """An all-invalid window of a given shape bucket: in a batch it sweeps
+    to neutral outputs and leaves every other window's unchanged."""
+    return VotingWindow(
+        **{f: torch.from_numpy(_filled(f, (W, E, P, S, R)))
+           for f in WIN_FIELDS},
+        base=0,
+    )
 
 
 # =============================================================================
@@ -464,50 +650,15 @@ def repad_window(win: VotingWindow, key: tuple) -> VotingWindow:
     rows have no voters and lie past every real round; extra S slots are
     unreferenced. Real rows keep their indexes, so the result maps back
     through the ORIGINAL window's row tables."""
-    W, E, P, S, R = key
-    W0, E0 = win.n_witnesses, win.n_events
-    P0, S0, R0 = win.member.shape[1], win.member.shape[0], win.psi.shape[0]
-    if (W0, E0, P0, S0, R0) == key:
+    if bucket_key(win) == key:
         return win
-
-    def pad(a, n, fill, dim=0):
-        if n == 0:
-            return a
-        shape = list(a.shape)
-        shape[dim] = n
-        return torch.cat(
-            [a, torch.full(shape, fill, dtype=a.dtype, device=a.device)], dim
-        )
-
-    la_w = pad(pad(win.la_w, W - W0, -1), P - P0, -1, dim=1)
-    fd_w = pad(pad(win.fd_w, W - W0, int(INT32_MAX)), P - P0,
-               int(INT32_MAX), dim=1)
-    member = pad(pad(win.member, S - S0, False), P - P0, False, dim=1)
-    return VotingWindow(
-        creator=pad(win.creator, E - E0, 0),
-        index=pad(win.index, E - E0, -1),
-        rounds=pad(win.rounds, E - E0, -10),
-        undet=pad(win.undet, E - E0, False),
-        wit_idx=pad(win.wit_idx, W - W0, 0),
-        la_w=la_w,
-        fd_w=fd_w,
-        rounds_w=pad(win.rounds_w, W - W0, -10),
-        valid_w=pad(win.valid_w, W - W0, False),
-        fame0_w=pad(win.fame0_w, W - W0, 0),
-        mid_w=pad(win.mid_w, W - W0, False),
-        member=member,
-        sm_s=pad(win.sm_s, S - S0, 2**30),
-        psi=pad(win.psi, R - R0, 0),
-        sm_r=pad(win.sm_r, R - R0, 2**30),
-        exists_r=pad(win.exists_r, R - R0, False),
-        prior_dec_r=pad(win.prior_dec_r, R - R0, False),
-        lb_gate_r=pad(win.lb_gate_r, R - R0, False),
-        base=win.base,
-        hashes=win.hashes,
-        row=win.row,
-        wit_hashes=win.wit_hashes,
-        wit_row=win.wit_row,
-    )
+    padded = {}
+    for f in WIN_FIELDS:
+        src = getattr(win, f).numpy()
+        a = _filled(f, key)
+        a[tuple(slice(0, n) for n in src.shape)] = src
+        padded[f] = torch.from_numpy(a)
+    return dataclasses.replace(win, **padded)
 
 
 def apply_fame(hg, win: VotingWindow, fame: np.ndarray) -> tuple:

@@ -15,16 +15,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    coordinates and on coordinates at the edges of int32 (per-peer bases up
    to 2^31 - 2^12, INT32_MIN and INT32_MAX, ties, both sentinels), with its
    time, its plain version's time, its bound and its share of the bound:
-   K1 at the live sweep's shapes, K2 at the DAG pipeline's, single and
+   K1 at the live sweep's shapes, single and over a batch of 16 windows
+   (the sweep batcher's waves), K2 at the DAG pipeline's, single and
    batched;
 3. the live offload at 16 validators: a seeded signed gossip stream
    replayed through the port's Hashgraph in syncs of 64 events with a flush
    after each — host oracle, TensorConsensus at its defaults, and with
-   min_window=0 — committing byte-identical blocks, with no fallback and
-   one K1 launch per device sweep;
-4. the same at 64 validators, one of which leaves from round 3 on, so
-   sweeps carry two peer-set slots through K1; the stream is long enough
-   that several blocks commit after the change;
+   min_window=0, both without the batcher so that the resident windows'
+   device program runs, and min_window=0 without resident windows (a full
+   build and upload each sweep) — committing byte-identical blocks, with
+   no fallback, one K1 launch per device sweep, and (min_window=0, resident)
+   reused window rows;
+4. the same (resident arms only) at 64 validators, one of which leaves
+   from round 3 on, so sweeps carry two peer-set slots through K1; the
+   stream is long enough that several blocks commit after the change;
 5. the all-at-once DAG pipeline (``ops.dag.run_pipeline``) on the card over
    ``snapshot_from_hashgraph`` of the 16-validator oracle and of a new
    64-validator stream of 4096 signed events (oracle replay only), equal to
@@ -41,24 +45,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8. a node cluster on the card, in a fresh process: 16 port Nodes over
    loopback TCP (bench.py's threaded 16-validator cell: heartbeat 0.05 s,
    slow heartbeat 0.3 s, closed-loop 100-byte transactions stamped with
-   their submit time, 8 s of warm-up, a 12 s window) in three arms —
-   oracle, the offload at its defaults, and with min_window 0 — each with
-   identical blocks on every node and monotonic timestamps; in the card
-   arms node 0's chain equals a host-oracle replay of its own events, no
-   fallback, and K1's launches equal the device sweeps launched; committed
-   tx/s and submit-to-commit p50/p95 per arm, /metrics scraped over HTTP,
-   and a profiled window (torch.profiler and the host sampler) of the
-   defaults arm;
+   their submit time, 8 s of warm-up, a 12 s window) in four arms —
+   oracle; the offload at its defaults (the sweep batcher and resident
+   windows); the same with min_window 0; and min_window 0 with resident
+   windows but without the batcher (one sweep per node) — each with identical
+   blocks on every node and monotonic timestamps; in the card arms node
+   0's chain equals a host-oracle replay of its own events and no fallback;
+   K1's launches equal the batcher's sweeps (batched and single; at least
+   one of two windows or more) in the batcher arms, the device sweeps the
+   nodes launched in the last; committed tx/s and submit-to-commit p50/p95
+   per arm, when each node committed each block, the batcher's counters
+   and per-sweep times, /metrics scraped
+   over HTTP, and a profiled window (torch.profiler and the host sampler)
+   of the defaults arm;
 9. the command line: four ``python -m babble_tpu_torch run --accelerator``
-   processes (their own datadirs, services, socket proxies, one shared
-   admission-slot directory, min_window 0) fed by socket clients until all
-   pass a block, which they must agree on, each with device sweeps and no
-   fallback, and ``/profile?format=torch`` on one of them must hold CUDA
+   processes (their own datadirs, services, socket proxies, min_window 0;
+   two at the offload's defaults, two without the batcher sharing one
+   admission-slot directory) fed by socket clients until all pass a block,
+   which they must agree on, each with device sweeps, resident windows on,
+   the batcher as set, no fallback, and time held in the shared slots
+   without it; ``/profile?format=torch`` on one of them must hold CUDA
    kernel records.
 
 For each live path (the replays of phases 3 and 4, and the node cluster of
-phase 8), K1 is also held against its plain version, and timed, at the
-shape that path's sweeps gave it most often. The line before the
+phase 8: its batched waves and its per-node sweeps), K1 is also held
+against its plain version, and timed, at the shape that path gave it most
+often. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -66,7 +78,8 @@ last is the kernels' JSON record; the last line is
 
 runs phase 2's timings only, in each given checkout of the repo in turn
 (each builds its own kernels in a fresh process), and exits: two commits
-compared on one card.
+compared on one card. ``--nodes-ab`` does the same with phase 8's node
+cluster.
 """
 
 from __future__ import annotations
@@ -107,6 +120,10 @@ PEAK_OPS_PER_S = 67e12
 # windows.
 K1_SHAPES = [(16, 4, 1), (37, 13, 3), (128, 16, 1), (256, 16, 1),
              (256, 64, 1), (256, 64, 2), (512, 64, 2), (1024, 64, 2)]
+# K1 over a batch of windows (B, W, P, S): waves of 16 co-located
+# validators' windows as the sweep batcher launches them, at the live
+# 16-validator bucket and at the 64-validator one with two slots
+K1_BATCH_SHAPES = [(16, 128, 16, 1), (16, 256, 64, 2)]
 # K2 (B, E, P): ragged and full single windows up to the pipeline's largest
 # (4096 events at 64 validators), the 16-validator stream's window (4096,
 # 16), bench.py's window (512, 16), and a batch of 8 of those
@@ -162,17 +179,19 @@ def k1_bound_ms(W: int, P: int, S: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_inputs(W: int, P: int, S: int, seed: int):
-    """Random coordinates with both sentinels mixed in."""
+def k1_inputs(W: int, P: int, S: int, seed: int, B: int = 0):
+    """Random coordinates with both sentinels mixed in: [W, P] and [S, P],
+    or with ``B`` a batch [B, W, P] and [B, S, P]."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    la = rng.randint(-1, 50, size=(W, P)).astype(np.int32)
-    fd = rng.randint(0, 50, size=(W, P)).astype(np.int32)
-    fd[rng.rand(W, P) < 0.3] = np.int32(2**31 - 1)
-    la[rng.rand(W, P) < 0.1] = -1
-    member = rng.rand(S, P) < 0.7
+    lead = (B,) if B else ()
+    la = rng.randint(-1, 50, size=(*lead, W, P)).astype(np.int32)
+    fd = rng.randint(0, 50, size=(*lead, W, P)).astype(np.int32)
+    fd[rng.rand(*lead, W, P) < 0.3] = np.int32(2**31 - 1)
+    la[rng.rand(*lead, W, P) < 0.1] = -1
+    member = rng.rand(*lead, S, P) < 0.7
     return tuple(torch.from_numpy(a).cuda() for a in (la, fd, member))
 
 
@@ -208,13 +227,14 @@ def edge_coordinates(shape, seed: int, la_below_max: bool = False):
     return la.astype(np.int32), fd.astype(np.int32)
 
 
-def k1_edge_inputs(W: int, P: int, S: int, seed: int):
+def k1_edge_inputs(W: int, P: int, S: int, seed: int, B: int = 0):
     """numpy la, fd and member for K1 on edge-value coordinates, la below
-    INT32_MAX."""
+    INT32_MAX; with ``B`` a batch of B windows."""
     import numpy as np
 
-    la, fd = edge_coordinates((W, P), seed, la_below_max=True)
-    member = np.random.RandomState(seed + 1).rand(S, P) < 0.7
+    lead = (B,) if B else ()
+    la, fd = edge_coordinates((*lead, W, P), seed, la_below_max=True)
+    member = np.random.RandomState(seed + 1).rand(*lead, S, P) < 0.7
     return la, fd, member
 
 
@@ -230,13 +250,15 @@ def edge_super_majority(la, fd) -> int:
 
 
 def k1_edge_check(shape, seed: int) -> None:
-    """K1 equal to its plain version on edge-value coordinates."""
+    """K1 equal to its plain version on edge-value coordinates; ``shape``
+    is (W, P, S) or (B, W, P, S)."""
     import torch
 
     from babble_tpu_torch.ops import kernels
 
+    *batch, W, P, S = shape
     la, fd, member = (torch.from_numpy(a).cuda()
-                      for a in k1_edge_inputs(*shape, seed))
+                      for a in k1_edge_inputs(W, P, S, seed, *batch))
     got = kernels.member_ss_counts(la, fd, member)
     want = kernels.member_ss_counts_plain(la, fd, member)
     torch.cuda.synchronize()
@@ -268,13 +290,15 @@ def k2_edge_check(shape, seed: int) -> None:
 
 def check_k1(shape, seed: int) -> dict:
     """K1 equal to its plain version on random and on edge-value
-    coordinates, and timed on the random ones."""
+    coordinates, and timed on the random ones; ``shape`` is (W, P, S), or
+    (B, W, P, S) for one launch over B windows, whose bound is B times one
+    window's."""
     import torch
 
     from babble_tpu_torch.ops import kernels
 
-    W, P, S = shape
-    la, fd, member = k1_inputs(W, P, S, seed)
+    *batch, W, P, S = shape
+    la, fd, member = k1_inputs(W, P, S, seed, *batch)
     got = kernels.member_ss_counts(la, fd, member)
     want = kernels.member_ss_counts_plain(la, fd, member)
     torch.cuda.synchronize()
@@ -288,7 +312,8 @@ def check_k1(shape, seed: int) -> dict:
         lambda: kernels.member_ss_counts_plain(la, fd, member), reps=20
     )
     bound_ms, bound_by = k1_bound_ms(W, P, S)
-    return {"shape": [W, P, S], "max_abs_err": err, "ms": ms,
+    bound_ms *= batch[0] if batch else 1
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -457,10 +482,12 @@ def _pct(xs, q):
 
 
 def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
-                  min_blocks_after=(-1, 1)):
-    """Oracle, accel at defaults, accel with min_window=0: identical
-    consensus, no fallback, one K1 launch per device sweep. The oracle must
-    commit at least ``min_blocks_after[1]`` blocks received in rounds after
+                  min_blocks_after=(-1, 1), no_resident_arm=False):
+    """Oracle, accel at defaults, accel with min_window=0 (both on resident
+    windows), and with ``no_resident_arm`` min_window=0 without them (a
+    full window build and upload every sweep): identical consensus, no
+    fallback, one K1 launch per device sweep. The oracle must commit at
+    least ``min_blocks_after[1]`` blocks received in rounds after
     ``min_blocks_after[0]``. Returns (one record per arm, oracle)."""
     from babble_tpu_torch.hashgraph.accel import TensorConsensus
     from babble_tpu_torch.ops import kernels
@@ -483,8 +510,17 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
                              f"after round {after_round}, fewer than "
                              f"{min_after}")
     results = []
-    for arm, kw in (("defaults", {}), ("min_window=0", {"min_window": 0})):
-        accel = TensorConsensus(device="cuda", **kw)
+    arms = [("defaults", {}), ("min_window=0", {"min_window": 0})]
+    if no_resident_arm:
+        arms.append(("min_window=0, no resident",
+                     {"min_window": 0, "resident": False}))
+    for arm, kw in arms:
+        # one node alone: no batcher (BABBLE_ACCEL_BATCH=0), so the
+        # resident windows' device program runs (or, without them,
+        # build_voting_window and launch_sweep)
+        accel = TensorConsensus(device="cuda", batcher=False, **kw)
+        assert accel.resident == kw.get("resident", True), (
+            "resident windows did not resolve as asked")
         samples = {k: [] for k in accel.stage_s}
         accel.stage_observer = lambda st, s: samples[st].append(s)
         kernels.reset_launch_counts()
@@ -504,6 +540,9 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
         if launches != accel.sweeps:
             raise AssertionError(f"[{label}/{arm}] K1 launches {launches} != "
                                  f"device sweeps {accel.sweeps}")
+        if arm == "min_window=0" and accel.rows_reused_total <= 0:
+            raise AssertionError(f"[{label}/{arm}] no resident window row "
+                                 "was reused")
         max_s = max(k[3] for k in accel.buckets)
         if max_s < min_slots:
             raise AssertionError(f"[{label}/{arm}] no sweep had {min_slots} "
@@ -517,6 +556,19 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
             f"{len(events) / wall:.1f} events/s ({wall:.3f} s)")
         log(f"[{label}/{arm}] buckets (W,E,P,S,R): {st['accel_buckets']}")
         log(f"[{label}/{arm}] per-sweep stages: {json.dumps(split)}")
+        n = max(1, accel.sweeps)
+        if not accel.resident:
+            log(f"[{label}/{arm}] no resident windows: ms per sweep: build "
+                f"{1e3 * accel.stage_s['build'] / n:.3f}")
+            results.append({"arm": arm, "launches": launches,
+                            "buckets": accel.buckets})
+            continue
+        log(f"[{label}/{arm}] resident windows: rows_delta "
+            f"{accel.rows_delta_total}, rows_reused {accel.rows_reused_total},"
+            f" rebuilds {accel.window_state.rebuilds}, delta sweeps "
+            f"{accel.delta_sweeps} of {accel.sweeps}; ms per sweep: build "
+            f"{1e3 * accel.stage_s['build'] / n:.3f}, delta_scan + pack "
+            f"{1e3 * (accel.stage_s['delta_scan'] + accel.stage_s['pack']) / n:.3f}")
         results.append({"arm": arm, "launches": launches,
                         "buckets": accel.buckets})
     return results, oracle
@@ -569,28 +621,34 @@ def profile_sweep(label, h, reps: int = 10) -> None:
         f"top (name, ms): {top}")
 
 
-def k1_row(label, res, seed: int) -> dict:
-    """K1 held against its plain version, and timed, at the (W, P, S) this
-    path's device sweeps gave it most often; its launches are those of the
-    path's run at the accelerator's defaults, counted from 0 for that run."""
+def k1_shapes(res) -> Counter:
+    """(W, P, S) -> device sweeps applied, over the arms of a path."""
     shapes = Counter()
     for r in res:
         for (W, _E, P, S, _R), n in r["buckets"].items():
             shapes[(W, P, S)] += n
+    return shapes
+
+
+def k1_row(label, shapes: Counter, launches: dict, main_arm: str,
+           seed: int) -> dict:
+    """K1 held against its plain version, and timed, at the shape this
+    path gave it most often (``shapes``: (W, P, S), or (B, W, P, S) for a
+    batched launch); ``launches`` holds each arm's K1 launches, counted
+    from 0 for that arm's run, and the row's are the ``main_arm``'s."""
     shape = max(shapes, key=shapes.get)
     row = check_k1(shape, seed)
-    launches = {r["arm"]: r["launches"] for r in res}
     log(f"K1 at the {label} path's most frequent shape {shape}: equal to "
         f"plain; kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
         f"bound {row['bound_ms']:.3g} ms ({row['bound_by']}); launches per "
-        f"arm {launches}; shapes over both arms "
+        f"arm {launches}; shapes "
         f"{json.dumps({'x'.join(map(str, k)): n for k, n in shapes.items()})}")
     return {
         "name": f"member_ss_counts[{label}]",
         "route": "cuda",
         "source": "babble_tpu_torch/csrc/member_ss.cu",
         "replaces": "babble_tpu/ops/pallas_kernels.py:104",
-        "launches": launches["defaults"],
+        "launches": launches[main_arm],
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -947,6 +1005,8 @@ PROFILE_S = 2.0
 # reached block 1 from 0 to 31 s after the load stopped, on the H100's host)
 SETTLE_BLOCK = 1
 SETTLE_S = 90.0
+# the arm whose nodes each sweep their own window on resident buffers
+NO_BATCHER_ARM = "min_window=0, resident, no batcher"
 
 
 def free_ports(n: int):
@@ -1179,20 +1239,27 @@ def device_profile(seconds: float) -> dict:
 
 def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 warmup_s: float = WARMUP_S, window_s: float = WINDOW_S,
-                profile: bool = False) -> dict:
+                profile: bool = False, require_batched: bool = False) -> dict:
     """One arm: an ``n``-node cluster under closed-loop load, ``warmup_s``
     then a ``window_s`` measured window (and with ``profile`` a profiled
     window after it), then the checks. K1's launches are counted from 0
-    for the arm and must equal the device sweeps it launched: applied,
-    dropped stale, and in flight when the nodes stopped."""
+    for the arm. With the sweep batcher they must equal its sweeps in the
+    arm, batched and single (and with ``require_batched`` at least one
+    sweep must have batched two windows or more); without it, the device
+    sweeps the nodes launched: applied, dropped stale, and in flight when
+    the nodes stopped."""
     import os
     import threading
 
     import torch
 
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
     from babble_tpu_torch.ops import kernels
     from babble_tpu_torch.service.service import Service
 
+    batcher = SweepBatcher.instance()
+    batch0 = batcher.stats()
+    shapes0 = Counter(batcher.sweep_shapes)
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -1208,6 +1275,13 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
     commits = []
     nodes[0].core.commit_listeners.append(
         lambda block: commits.append((time.monotonic(), block)))
+    # every node's block commits, as (time, block index): whether the
+    # slowest node lags the others or all commit each block together
+    node_commits = [[] for _ in nodes]
+    for node, mine in zip(nodes, node_commits):
+        node.core.commit_listeners.append(
+            lambda block, mine=mine: mine.append((time.monotonic(),
+                                                  block.index())))
     svc = Service("127.0.0.1:0", nodes[0])
     svc.serve_async()
     rec = {"arm": label}
@@ -1218,11 +1292,16 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
             f"{time.perf_counter() - t_setup:.2f} s (set-up)")
         pump = Pump(proxies, states)
         pump.until(time.monotonic() + warmup_s)
-        base = pump.committed()
+        base = [len(st.committed_txs) for st in states]
         t0 = time.monotonic()
         pump.until(t0 + window_s)
         t1 = time.monotonic()
-        rec["tx_per_s"] = (pump.committed() - base) / (t1 - t0)
+        in_window = [len(st.committed_txs) - b
+                     for st, b in zip(states, base)]
+        # bench.py's rate: the least node's count at the end less the least
+        # node's at the start
+        rec["tx_per_s"] = (pump.committed() - min(base)) / (t1 - t0)
+        rec["window_tx_by_node"] = in_window
         lat = tx_latencies(commits, t0, t1)
         rec["p50_ms"] = 1e3 * _pct(lat, 0.5) if lat else None
         rec["p95_ms"] = 1e3 * _pct(lat, 0.95) if lat else None
@@ -1256,6 +1335,25 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
             time.sleep(0.25)
         rec["settle_s"] = time.monotonic() - t_settle
         stats = [node.get_stats_snapshot() for node in nodes]
+        # per block: when its first and its last node committed it, and
+        # which node was last, in seconds from the window's start
+        by_block = {}
+        for i, mine in enumerate(node_commits):
+            for t, bi in mine:
+                by_block.setdefault(bi, []).append((t - t0, i))
+        rec["block_commits"] = [
+            [bi, round(min(v)[0], 2), round(max(v)[0], 2), max(v)[1], len(v)]
+            for bi, v in sorted(by_block.items())]
+        # per node, to tell a lagging node apart: syncs ingested, core-lock
+        # wait, undetermined events, and its offload's sweeps, contended
+        # flushes, rebuilds and snapshot ms (build + delta_scan + pack)
+        rec["per_node"] = [
+            [s["ingest_syncs"], s["lock_wait_ms_total"],
+             s["undetermined_events"], s.get("accel_sweeps", 0),
+             s.get("accel_contended", 0), s.get("accel_rebuilds", 0),
+             round(sum(s.get("accel_stage_ms", {}).get(k, 0.0)
+                       for k in ("build", "delta_scan", "pack")), 1)]
+            for s in stats]
     finally:
         t_down = time.monotonic()
         svc.shutdown()
@@ -1270,6 +1368,14 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 pass
         rec["shutdown_s"] = time.monotonic() - t_down
     if accelerator:
+        # the batcher sweeps the windows the nodes queued before they
+        # stopped; count its launches once it is done
+        deadline = time.monotonic() + 60
+        while not batcher.idle():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[nodes/{label}] the sweep batcher "
+                                     "never went idle")
+            time.sleep(0.05)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()["member_ss_counts"]
     rec["common_block"] = check_cluster_blocks(f"nodes/{label}", nodes)
@@ -1290,6 +1396,29 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
         fallbacks=sum(a.fallbacks for a in accels),
         buckets=sum((a.buckets for a in accels), Counter()),
     )
+    batched = accels[0].batcher
+    if any(a.batcher != batched or not a.resident for a in accels):
+        raise AssertionError(f"[nodes/{label}] nodes resolved different "
+                             "offload options, or resident windows off")
+    rec["batcher"] = batched
+    rec["rows_delta"] = sum(a.rows_delta_total for a in accels)
+    rec["rows_reused"] = sum(a.rows_reused_total for a in accels)
+    rec["rebuilds"] = sum(a.window_state.rebuilds for a in accels)
+    rec["delta_sweeps"] = sum(a.delta_sweeps for a in accels)
+    if batched:
+        b1 = batcher.stats()
+        wave = {k: b1[k] - batch0[k] for k in (
+            "batch_batches", "batch_singles", "batch_windows",
+            "batch_refused", "batch_dispatch_ms", "batch_dispatch_cpu_ms",
+            "batch_readback_ms")}
+        shapes = Counter(batcher.sweep_shapes) - shapes0
+        wave["batch_max"] = max((k[0] for k in shapes), default=0)
+        rec["wave"] = wave
+        rec["sweep_shapes"] = shapes
+        rec["expected_launches"] = (wave["batch_batches"]
+                                    + wave["batch_singles"])
+    else:
+        rec["expected_launches"] = applied + stale + in_flight
     busiest = max(stats, key=lambda s: s["accel_sweeps"])
     rec["busiest"] = {k: busiest[k] for k in (
         "accel_sweeps", "accel_avg_sweep_ms", "accel_contended",
@@ -1309,11 +1438,16 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
         raise AssertionError(f"[nodes/{label}] {rec['fallbacks']} fallbacks")
     if any(s["accel_kernel"] != "cuda" for s in stats):
         raise AssertionError(f"[nodes/{label}] a node's sweep is not on K1")
-    if launches != applied + stale + in_flight:
-        raise AssertionError(
-            f"[nodes/{label}] K1 launches {launches} != device sweeps "
-            f"launched {applied + stale + in_flight} (applied {applied}, "
-            f"stale {stale}, in flight {in_flight})")
+    if launches != rec["expected_launches"]:
+        what = ("the batcher's sweeps (batched + single)" if batched else
+                f"device sweeps launched (applied {applied}, stale {stale},"
+                f" in flight {in_flight})")
+        raise AssertionError(f"[nodes/{label}] K1 launches {launches} != "
+                             f"{rec['expected_launches']}, {what}")
+    if require_batched and not (batched and rec["wave"]["batch_batches"] > 0
+                                and rec["wave"]["batch_max"] >= 2):
+        raise AssertionError(f"[nodes/{label}] no batched sweep of two or "
+                             f"more windows: {rec['wave']}")
     t_replay = time.monotonic()
     rec["replayed_events"] = replay_own_events(f"nodes/{label}", nodes[0])
     rec["replay_s"] = time.monotonic() - t_replay
@@ -1333,6 +1467,13 @@ def log_arm(rec: dict, name_power: str) -> None:
     def ms(x):
         return "n/a" if x is None else f"{x:.1f}"
 
+    log(f"[nodes/{rec['arm']}] block commits (block, first node s, last "
+        f"node s from the window's start, last node, nodes): "
+        f"{json.dumps(rec['block_commits'])}; tx committed in the window by "
+        f"node {rec['window_tx_by_node']}")
+    log(f"[nodes/{rec['arm']}] per node (syncs, lock wait ms, undetermined, "
+        f"sweeps, contended, rebuilds, snapshot ms): "
+        f"{json.dumps(rec['per_node'])}")
     log(f"[nodes/{rec['arm']}] {rec['tx_per_s']:.1f} committed tx/s; "
         f"submit-to-commit p50 {ms(rec['p50_ms'])} ms, p95 "
         f"{ms(rec['p95_ms'])} ms ({rec['latency_samples']} tx); node 0 "
@@ -1343,12 +1484,27 @@ def log_arm(rec: dict, name_power: str) -> None:
     if "sweeps" not in rec:
         return
     log(f"[nodes/{rec['arm']}] sweeps applied {rec['sweeps']}, stale "
-        f"{rec['stale_drops']}, in flight {rec['in_flight']} = K1 launches "
+        f"{rec['stale_drops']}, in flight {rec['in_flight']}; K1 launches "
         f"{rec['launches']}; small_windows {rec['small_windows']}, contended "
         f"{rec['contended']}, fallbacks 0; node 0's chain equals the host "
         f"replay of its {rec['replayed_events']} events ({rec['replay_s']:.1f}"
         f" s); busiest node "
         f"{json.dumps(rec['busiest'])}")
+    log(f"[nodes/{rec['arm']}] resident windows: rows_delta "
+        f"{rec['rows_delta']}, rows_reused {rec['rows_reused']}, rebuilds "
+        f"{rec['rebuilds']}, sweeps that uploaded only the delta "
+        f"{rec['delta_sweeps']}")
+    if rec["batcher"]:
+        w = rec["wave"]
+        n = max(1, w["batch_batches"] + w["batch_singles"])
+        log(f"[nodes/{rec['arm']}] sweep batcher: {json.dumps(w)}; K1 "
+            f"launches {rec['launches']} = batched {w['batch_batches']} + "
+            f"single {w['batch_singles']} (1 per sweep); per sweep: dispatch "
+            f"{w['batch_dispatch_ms'] / n:.3f} ms wall, "
+            f"{w['batch_dispatch_cpu_ms'] / n:.3f} ms CPU, readback "
+            f"{w['batch_readback_ms'] / n:.3f} ms, "
+            f"{w['batch_windows'] / n:.2f} windows; launch shapes (B,W,P,S) "
+            f"{json.dumps({'x'.join(map(str, k)): v for k, v in rec['sweep_shapes'].most_common()})}")
     log(f"[nodes/{rec['arm']}] ms per sweep (readback: enqueue end to the "
         f"flush that finds it landed; dispatch_cpu: the dispatching "
         f"thread's CPU time): busiest node "
@@ -1390,17 +1546,25 @@ def node_cluster_child() -> None:
         ("oracle", False, {}, False),
         ("defaults", True, {}, True),
         ("min_window=0", True, {"BABBLE_ACCEL_MIN_WINDOW": "0"}, False),
+        (NO_BATCHER_ARM, True,
+         {"BABBLE_ACCEL_MIN_WINDOW": "0", "BABBLE_ACCEL_BATCH": "0"}, False),
     ):
         t0 = time.perf_counter()
-        rec = cluster_arm(label, acc, env, profile=prof)
+        rec = cluster_arm(label, acc, env, profile=prof,
+                          require_batched=acc and "BABBLE_ACCEL_BATCH" not in env)
         log_arm(rec, name_power)
         log(f"[nodes/{label}] arm wall {time.perf_counter() - t0:.1f} s")
         arms.append(rec)
-    if arms[2]["sweeps"] <= 0:
-        raise AssertionError("[nodes/min_window=0] no device sweep ran")
+    for rec in arms[2:]:
+        if rec["sweeps"] <= 0:
+            raise AssertionError(f"[nodes/{rec['arm']}] no device sweep ran")
+    if arms[3]["delta_sweeps"] <= 0:
+        raise AssertionError(f"[nodes/{arms[3]['arm']}] no sweep ran on the "
+                             "resident buffers with only its delta")
     for rec in arms:
-        if "buckets" in rec:
-            rec["buckets"] = [[list(k), v] for k, v in rec["buckets"].items()]
+        for key in ("buckets", "sweep_shapes"):
+            if key in rec:
+                rec[key] = [[list(k), v] for k, v in rec[key].items()]
     print("NODES " + json.dumps(arms), flush=True)
 
 
@@ -1426,14 +1590,18 @@ def node_cluster_fresh() -> list:
                              f"\n{proc.stderr[-4000:]}")
     arms = json.loads([ln for ln in lines if ln.startswith("NODES ")][0][6:])
     for rec in arms:
-        if "buckets" in rec:
-            rec["buckets"] = Counter({tuple(k): v for k, v in rec["buckets"]})
+        for key in ("buckets", "sweep_shapes"):
+            if key in rec:
+                rec[key] = Counter({tuple(k): v for k, v in rec[key]})
     return arms
 
 
 # -- phase 9: the command line, as processes ---------------------------------
 
 CLI_NODES = 4
+# the first CLI_BATCHED node processes run the batcher, the others share
+# admission slots
+CLI_BATCHED = 2
 CLI_TARGET_BLOCK = 4
 CLI_PROFILE_S = 1.0
 CLI_TIMEOUT_S = 180.0
@@ -1442,12 +1610,18 @@ CLI_TIMEOUT_S = 180.0
 def cli_cluster() -> dict:
     """CLI_NODES ``python -m babble_tpu_torch run --accelerator`` processes
     on the card, each with its own datadir (keygen, peers.json), service,
-    socket proxy and dummy client, sharing one BABBLE_ACCEL_SLOT_DIR, with
-    BABBLE_ACCEL_MIN_WINDOW=0 (bench.py's bench_subprocess_cluster). Clients
-    submit until every node passes CLI_TARGET_BLOCK; then every node must
-    agree on that block's body, report device sweeps and no fallback, and
-    node 0's torch profile must hold CUDA kernel records. The children are
-    killed at the end; one that exits early fails the phase."""
+    socket proxy and dummy client, with BABBLE_ACCEL_MIN_WINDOW=0
+    (bench.py's bench_subprocess_cluster): the first CLI_BATCHED at the
+    offload's defaults (the sweep batcher and resident windows, each
+    process with its own batcher), the others with BABBLE_ACCEL_BATCH=0
+    and one shared BABBLE_ACCEL_SLOT_DIR (the cross-process admission
+    slots, flock files). Clients submit until every node passes
+    CLI_TARGET_BLOCK; then every node must agree on that block's body,
+    report device sweeps, resident windows on, the batcher as set, no
+    fallback, and (without the batcher) time held in a shared slot, whose
+    files must exist; node 0's torch profile must hold CUDA kernel records.
+    The children are killed at the end; one that exits early fails the
+    phase."""
     import os
     import shutil
     import subprocess
@@ -1469,8 +1643,10 @@ def cli_cluster() -> dict:
     peers = [{"NetAddr": f"127.0.0.1:{gossip[i]}",
               "PubKeyHex": k.public_key.hex(), "Moniker": f"c{i}"}
              for i, k in enumerate(keys)]
-    env = {**os.environ, "BABBLE_ACCEL_SLOT_DIR": os.path.join(tmp, "slots"),
-           "BABBLE_ACCEL_MIN_WINDOW": "0"}
+    env = {**os.environ, "BABBLE_ACCEL_MIN_WINDOW": "0"}
+    slot_dir = os.path.join(tmp, "slots")
+    env_slots = {**env, "BABBLE_ACCEL_BATCH": "0",
+                 "BABBLE_ACCEL_SLOT_DIR": slot_dir}
     procs, clients, errs = [], [], []
 
     def check_alive() -> None:
@@ -1507,7 +1683,8 @@ def cli_cluster() -> dict:
                  "--heartbeat", str(HEARTBEAT_S),
                  "--slow-heartbeat", str(SLOW_HEARTBEAT_S),
                  "--moniker", f"c{i}", "--log", "error"],
-                stdout=subprocess.DEVNULL, stderr=errs[i], cwd=here, env=env,
+                stdout=subprocess.DEVNULL, stderr=errs[i], cwd=here,
+                env=env if i < CLI_BATCHED else env_slots,
             ))
             clients.append(DummySocketClient(f"127.0.0.1:{client[i]}",
                                              f"127.0.0.1:{proxy[i]}"))
@@ -1563,15 +1740,29 @@ def cli_cluster() -> dict:
                                  f"nodes: {hashes}")
         all_stats = [stats(i) for i in range(n)]
         for i, st in enumerate(all_stats):
+            batched = i < CLI_BATCHED
             if (st["consensus_engine"] != "device"
                     or int(st["accel_sweeps"]) <= 0
                     or int(st["accel_fallbacks"]) != 0
-                    or st["accel_kernel"] != "cuda"):
+                    or st["accel_kernel"] != "cuda"
+                    or st["accel_batcher"] != str(batched)
+                    or st["accel_resident"] != "True"
+                    or (not batched
+                        and float(st["accel_slot_held_ms"]) <= 0)):
                 raise AssertionError(f"[cli] node {i}: engine "
                                      f"{st['consensus_engine']}, kernel "
                                      f"{st['accel_kernel']}, sweeps "
                                      f"{st['accel_sweeps']}, fallbacks "
-                                     f"{st['accel_fallbacks']}")
+                                     f"{st['accel_fallbacks']}, batcher "
+                                     f"{st['accel_batcher']} (want "
+                                     f"{batched}), resident "
+                                     f"{st['accel_resident']}, slot held "
+                                     f"{st['accel_slot_held_ms']} ms")
+        slot_files = sorted(os.listdir(slot_dir))
+        if not slot_files or any(not f.startswith("sweep-slot-")
+                                 for f in slot_files):
+            raise AssertionError(f"[cli] shared slot dir holds {slot_files}, "
+                                 "not the admission slot files")
         summary = trace_device_summary(prof["trace_file"], CLI_PROFILE_S)
         if summary["kernels"] <= 0:
             raise AssertionError("[cli] the torch profile holds no CUDA "
@@ -1582,12 +1773,22 @@ def cli_cluster() -> dict:
             "seconds_to_block": t_blocks,
             "sweeps": [int(st["accel_sweeps"]) for st in all_stats],
             "contended": [int(st["accel_contended"]) for st in all_stats],
+            "batched": [int(st.get("batch_batches", 0))
+                        for st in all_stats],
+            "slot_held_ms": [float(st["accel_slot_held_ms"])
+                             for st in all_stats],
+            "rows_reused": [int(st["accel_rows_reused"])
+                            for st in all_stats],
             "profile": summary,
         }
         log(f"[cli] {n} processes agree on block {target_block} (body "
             f"{rec['body_hash'][:16]}…, reached in {t_blocks:.1f} s); "
-            f"consensus_engine device, sweeps {rec['sweeps']}, contended "
-            f"{rec['contended']}, fallbacks 0; /profile?format=torch over "
+            f"consensus_engine device, resident windows on, the batcher on "
+            f"nodes 0-{CLI_BATCHED - 1} and off on the others, which share "
+            f"the slot files {slot_files}; sweeps {rec['sweeps']}, batched "
+            f"sweeps {rec['batched']}, rows_reused {rec['rows_reused']}, "
+            f"contended {rec['contended']}, slot held ms "
+            f"{rec['slot_held_ms']}, fallbacks 0; /profile?format=torch over "
             f"{CLI_PROFILE_S} s on node 0 (answered in {t_prof:.1f} s): "
             f"{summary['kernels']} CUDA kernel records, "
             f"{summary['k1_kernels']} of them K1, device busy "
@@ -1657,16 +1858,56 @@ def kernel_ab(trees) -> None:
                 f" ms of {[round(m, 5) for m in ms]}")
 
 
+def nodes_ab(trees) -> None:
+    """Phase 8 (``node_cluster_child``) in each tree of ``trees``
+    (checkouts of this repo, each with its own build), one fresh process
+    per tree, in the order given (old, new, new, old compares two commits
+    on one card); prints each arm's committed tx/s, submit-to-commit
+    p50/p95, seconds to settle and, where the tree records it, when each
+    block committed on its first and last node."""
+    import os
+    import subprocess
+
+    for tree in trees:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.node_cluster_child()"],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.splitlines()
+        sys.stdout.write("".join(f"[nodes-ab] {tree}: {ln}\n" for ln in lines
+                                 if not ln.startswith("NODES ")))
+        line = [x for x in lines if x.startswith("NODES ")]
+        if proc.returncode != 0 or not line:
+            raise AssertionError(f"node cluster in {tree} exit "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        wall = time.perf_counter() - t0
+        for rec in json.loads(line[0][6:]):
+            keep = {k: rec.get(k) for k in (
+                "tx_per_s", "p50_ms", "p95_ms", "latency_samples",
+                "settle_s", "common_block", "sweeps", "contended",
+                "rebuilds", "block_commits", "window_tx_by_node",
+                "per_node")
+                if k in rec}
+            log(f"[nodes-ab] {os.path.abspath(tree)} {rec['arm']}: "
+                f"{json.dumps(keep)}")
+        log(f"[nodes-ab] {os.path.abspath(tree)}: {wall:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--ab", nargs="+", metavar="TREE",
                     help="only time phase 2's kernels in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
+    ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
+                    help="only run phase 8's node cluster in each of these "
+                    "checkouts in turn (e.g. old new new old) and exit")
     args = ap.parse_args(argv)
 
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -1681,6 +1922,9 @@ def main(argv=None) -> int:
         f"{dev['name_power']}")
     if args.ab:
         kernel_ab(args.ab)
+        return 0
+    if args.nodes_ab:
+        nodes_ab(args.nodes_ab)
         return 0
     t0 = time.perf_counter()
     so = kernels.build()
@@ -1702,6 +1946,15 @@ def main(argv=None) -> int:
             f"{row['bound_ms']:.3g} ms ({row['bound_by']}), "
             f"{row['bound_ms'] / row['ms']:.1%} of bound, tile "
             f"{kernels.member_ss_tile(shape[0], shape[2])}")
+    for i, shape in enumerate(K1_BATCH_SHAPES):
+        row = check_k1(shape, seed=args.seed + 30 + i)
+        B, W, P, S = shape
+        log(f"K1 (B, W, P, S) {shape}: one launch, equal to plain on random "
+            f"and edge values; kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
+            f"({row['bound_by']}, {B} x one window's), "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound, tile "
+            f"{kernels.member_ss_tile(W, S, B)}")
     k2_checked = {}
     for i, shape in enumerate(K2_SHAPES):
         row = check_k2(shape, seed=args.seed + 50 + i)
@@ -1717,9 +1970,12 @@ def main(argv=None) -> int:
     events, _keys, peers = gossip_stream(16, EVENTS_16, args.seed)
     log(f"[16] stream: {len(events)} signed events in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")
-    res16, oracle16 = run_main_path("16", events, peers)
+    res16, oracle16 = run_main_path("16", events, peers,
+                                    no_resident_arm=True)
     profile_sweep("16", oracle16)
-    rows = [k1_row("16 validators", res16, seed=args.seed + 100)]
+    rows = [k1_row("16 validators", k1_shapes(res16),
+                   {r["arm"]: r["launches"] for r in res16}, "defaults",
+                   seed=args.seed + 100)]
 
     # Phase 4: 64 validators, one leaving from CHANGE_ROUND on
     t0 = time.perf_counter()
@@ -1732,7 +1988,9 @@ def main(argv=None) -> int:
         min_blocks_after=(CHANGE_ROUND, MIN_BLOCKS_AFTER_CHANGE),
     )
     profile_sweep("64", oracle64)
-    rows.append(k1_row("64 validators", res64, seed=args.seed + 101))
+    rows.append(k1_row("64 validators", k1_shapes(res64),
+                       {r["arm"]: r["launches"] for r in res64}, "defaults",
+                       seed=args.seed + 101))
     del oracle64
 
     # Phases 5 and 6: the DAG pipeline, K2's path; counts from 0 to here
@@ -1778,15 +2036,27 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     arms = node_cluster_fresh()
     log(f"[nodes] phase 8: {time.perf_counter() - t0:.1f} s")
-    rows.append(k1_row(f"{NODES}-node cluster",
-                       [r for r in arms if "buckets" in r],
-                       seed=args.seed + 102))
+    card = {r["arm"]: r for r in arms if "sweeps" in r}
+    launches = {arm: r["launches"] for arm, r in card.items()}
+    waves = Counter()
+    for r in card.values():
+        if r["batcher"]:
+            waves += Counter({k: n for k, n in r["sweep_shapes"].items()
+                              if k[0] >= 2})
+    rows.append(k1_row(f"{NODES}-node cluster, batched waves", waves,
+                       launches, "defaults", seed=args.seed + 102))
+    per_node = NO_BATCHER_ARM
+    rows.append(k1_row(f"{NODES}-node cluster, per node",
+                       k1_shapes([card[per_node]]), launches, per_node,
+                       seed=args.seed + 103))
 
     # Phase 9: the command line, four node processes on the card
     t0 = time.perf_counter()
     cli_cluster()
     log(f"[cli] phase 9: {time.perf_counter() - t0:.1f} s")
 
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(dev["name_power"] or "nvidia-smi: not available")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -196,7 +196,8 @@ def test_accel_stats_surface():
     assert s["accel_last_window_events"] > 0
     assert s["accel_avg_sweep_ms"] > 0
     assert set(s["accel_stage_ms"]) == {
-        "build", "dispatch", "readback", "kernel", "apply",
+        "build", "delta_scan", "pack", "dispatch", "readback", "kernel",
+        "apply",
     }
     # on the CPU K1 runs its plain version: no kernel launch is counted
     assert kernels.launch_counts()["member_ss_counts"] == 0
@@ -258,11 +259,12 @@ def test_accel_sweep_error_propagates(monkeypatch, pipeline):
     counts no fallback."""
     _oracle, ph = _port_unflushed("consensus", pipeline=pipeline)
 
-    def broken(win, device):
+    def broken(la, fd, member):
         raise RuntimeError("member_ss_counts: CUDA launch failed with "
                            "cudaError_t 9")
 
-    monkeypatch.setattr(voting, "launch_sweep", broken)
+    # K1 behind the operator every sweep calls: single, resident, batched
+    monkeypatch.setattr(kernels, "member_ss_counts", broken)
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         ph.flush_consensus()
     assert ph.accel.fallbacks == 0
@@ -273,8 +275,15 @@ def test_accel_sweep_error_propagates(monkeypatch, pipeline):
     {"mesh": object()}, {"batcher": True}, {"resident": True},
 ])
 def test_unported_modes_raise(kwarg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TensorConsensus(device="cpu", **kwarg)
+    """Only the mesh is still to port: it raises; the batcher and resident
+    windows, ported, construct."""
+    if "mesh" in kwarg:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            TensorConsensus(device="cpu", **kwarg)
+        return
+    acc = TensorConsensus(device="cpu", **kwarg)
+    (name, want), = kwarg.items()
+    assert getattr(acc, name) is want
 
 
 def test_port_peer_set_hashes_match():

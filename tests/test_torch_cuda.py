@@ -112,9 +112,9 @@ def test_vote_matmul_exact_on_card(card):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
-def _gossip_hashgraph(n_peers=7, n_events=200, seed=5):
-    """A port Hashgraph over a seeded gossip stream, voting deferred, a peer
-    leaving at round 3."""
+def _gossip_stream(n_peers=7, n_events=200, seed=5):
+    """A seeded gossip stream of signed events and a port Hashgraph for it
+    (no event inserted yet), a peer leaving at round 3."""
     rng = random.Random(seed)
     keys = [PrivateKey(rng.randrange(1, CURVE_N)) for _ in range(n_peers)]
     peers = PeerSet([Peer(f"inmem://p{i}", k.public_key.hex(), f"p{i}")
@@ -122,28 +122,41 @@ def _gossip_hashgraph(n_peers=7, n_events=200, seed=5):
     h = Hashgraph(InmemStore(100000))
     h.init(peers)
     h.store.set_peer_set(3, peers.with_removed_peer(peers.peers[-1]))
-    heads, seqs, count = [""] * n_peers, [-1] * n_peers, 0
+    heads, seqs, events = [""] * n_peers, [-1] * n_peers, []
     order = list(range(n_peers))
-    while count < n_events:
+    while len(events) < n_events:
         rng.shuffle(order)
         for i in order:
-            if count >= n_events:
+            if len(events) >= n_events:
                 break
             op = ""
-            if count:
+            if events:
                 j = rng.randrange(n_peers - 1)
                 op = heads[j if j < i else j + 1]
                 if op == "":
                     continue
             idx = seqs[i] + 1
             e = Event.new([b"t"] if idx else [], [], [], [heads[i], op],
-                          keys[i].public_key.bytes(), idx, timestamp=count)
+                          keys[i].public_key.bytes(), idx,
+                          timestamp=len(events))
             e.sign(keys[i])
             e.prevalidate(True)
             heads[i], seqs[i] = e.hex(), idx
-            h.insert_event(e, set_wire_info=True)
-            h.divide_rounds()
-            count += 1
+            events.append(e)
+    return h, events
+
+
+def _insert(h, events) -> None:
+    for e in events:
+        h.insert_event(e, set_wire_info=True)
+        h.divide_rounds()
+
+
+def _gossip_hashgraph(n_peers=7, n_events=200, seed=5):
+    """A port Hashgraph over a seeded gossip stream, voting deferred, a peer
+    leaving at round 3."""
+    h, events = _gossip_stream(n_peers, n_events, seed)
+    _insert(h, events)
     return h
 
 
@@ -176,11 +189,114 @@ def test_failing_k1_launch_raises_out_of_flush(card, monkeypatch, pipeline):
     """A K1 launch that fails on the card raises out of flush: it is never
     turned into an oracle run on the host, and counts no fallback."""
     h = _gossip_hashgraph()
-    h.accel = TensorConsensus(device=card, min_window=0, pipeline=pipeline)
+    h.accel = TensorConsensus(device=card, min_window=0, pipeline=pipeline,
+                              batcher=False)
     monkeypatch.setattr(kernels, "_lib", _FailingLib())
     h._accel_pending = 1
     with pytest.raises(RuntimeError, match="cudaError_t 9"):
         h.flush_consensus()
+    assert h.accel.fallbacks == 0
+    assert h.accel.sweeps == 0
+
+
+# -- the batch axis, resident windows and the sweep batcher on the card ------
+
+# (B, W, P, S): a ragged batch, the live 16- and 64-validator buckets of
+# co-located nodes' waves (both tiles), and two slot groups a window
+K1_BATCH_CARD_SHAPES = [(3, 37, 13, 3), (16, 128, 16, 1), (16, 256, 64, 2),
+                        (2, 2100, 7, 2), (5, 70, 17, 2)]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("B,W,P,S", K1_BATCH_CARD_SHAPES)
+def test_k1_batched_kernel_equals_plain(card, B, W, P, S, values):
+    """One launch over B windows equals the plain version bit for bit, on
+    random and on int32-edge coordinates, and each window equals its own
+    one-window launch."""
+    make = _k1_inputs if values == "random" else k1_edge_inputs
+    parts = [make(W, P, S, seed=W + P + S + b) for b in range(B)]
+    la, fd, member = (torch.from_numpy(np.stack(a)).to(card)
+                      for a in zip(*parts))
+    kernels.reset_launch_counts()
+    got = kernels.member_ss_counts(la, fd, member)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["member_ss_counts"] == 1
+    assert tuple(got.shape) == (B, S, W, W)
+    assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
+    for b in (0, B - 1):
+        assert torch.equal(got[b], kernels.member_ss_counts(la[b], fd[b],
+                                                            member[b]))
+
+
+def test_resident_delta_program_equals_full_upload(card):
+    """The resident program on the card: a first snapshot seeds the
+    buffers by a full upload, a second uploads only its delta into them;
+    that sweep equals a full upload of the same window and the CPU's, and
+    each sweep is one K1 launch."""
+    from babble_tpu_torch.ops import window_state as ws
+
+    h, events = _gossip_stream(n_events=240)
+    h._accel_track_delta = True
+    state = ws.WindowState()
+    _insert(h, events[:180])
+    snap = state.snapshot(h, {})
+    kernels.reset_launch_counts()
+    _out, used = state.dispatch(snap, card)
+    assert not used and state.device is not None
+    _insert(h, events[180:196])
+    snap2 = state.snapshot(h, {})
+    assert snap2.delta is not None and not snap2.rebuilt
+    got, used2 = state.dispatch(snap2, card)
+    assert used2
+    full = voting.launch_sweep(snap2.win, card)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["member_ss_counts"] == 3
+    assert torch.equal(got, full)
+    assert torch.equal(got.cpu(), voting.launch_sweep(snap2.win,
+                                                      torch.device("cpu")))
+
+
+def test_batcher_wave_equals_singles_on_card(card):
+    """Three windows of different buckets queued as one wave: one batched
+    sweep (one K1 launch), each window's result equal to its single sweep
+    on the card."""
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+
+    wins = []
+    for n, seed in ((7, 5), (7, 6), (9, 7)):
+        wins.append(voting.build_voting_window(
+            _gossip_hashgraph(n_peers=n, n_events=150 + 20 * len(wins),
+                              seed=seed)))
+    singles = [voting.run_sweep(w, card) for w in wins]
+    svc = SweepBatcher()
+    kernels.reset_launch_counts()
+    with svc._lock:  # hold the dispatcher until the wave is queued
+        tickets = [svc.submit(w, device=card) for w in wins]
+    for t in tickets:
+        assert t.done.wait(120)
+        assert t.error is None, t.error
+    assert [t.batch_size for t in tickets] == [3, 3, 3]
+    assert kernels.launch_counts()["member_ss_counts"] == 1
+    assert svc.batches == 1 and sum(svc.sweep_shapes.values()) == 1
+    for t, (fame, rr) in zip(tickets, singles):
+        np.testing.assert_array_equal(t.result[0], fame)
+        np.testing.assert_array_equal(t.result[1], rr)
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_failing_k1_launch_in_the_batcher_raises_out_of_flush(
+        card, monkeypatch, pipeline):
+    """A K1 launch that fails in the batcher's sweep fails the ticket, and
+    the node's flush re-raises it: no oracle run, no fallback."""
+    h = _gossip_hashgraph()
+    h.accel = TensorConsensus(device=card, min_window=0, pipeline=pipeline,
+                              batcher=True)
+    monkeypatch.setattr(kernels, "_lib", _FailingLib())
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        for _ in range(1000):
+            h._accel_pending = 1
+            h.flush_consensus()
+            time.sleep(0.01)
     assert h.accel.fallbacks == 0
     assert h.accel.sweeps == 0
 
@@ -312,19 +428,21 @@ def test_failing_k2_launch_raises_out_of_pipeline(card, monkeypatch):
     ("defaults", {}), ("min_window=0", {"BABBLE_ACCEL_MIN_WINDOW": "0"}),
 ])
 def test_node_cluster_on_card(card, arm, env):
-    """Four port nodes over loopback TCP with the offload on the card
-    (chip_smoke.py phase 8 at a smaller size): identical blocks on every
-    node, node 0's chain equal to the host replay of its events, no
-    fallback, and one K1 launch per device sweep launched. With min_window
-    0 every window sweeps, and a profiled window must hold K1's kernel
-    records."""
+    """Four port nodes over loopback TCP with the offload on the card at
+    its defaults (the sweep batcher and resident windows; chip_smoke.py
+    phase 8 at a smaller size): identical blocks on every node, node 0's
+    chain equal to the host replay of its events, no fallback, and one K1
+    launch per batcher sweep. With min_window 0 every window sweeps, and a
+    profiled window must hold K1's kernel records."""
     sweeping = arm == "min_window=0"
     rec = cluster_arm(arm, True, env, n=4, warmup_s=3.0, window_s=4.0,
                       profile=sweeping)
+    assert rec["batcher"]
     assert rec["common_block"] >= 1
     assert rec["fallbacks"] == 0
-    assert rec["launches"] == (rec["sweeps"] + rec["stale_drops"]
-                               + rec["in_flight"])
+    assert rec["launches"] == rec["expected_launches"]
+    assert rec["launches"] == (rec["wave"]["batch_batches"]
+                               + rec["wave"]["batch_singles"])
     if sweeping:
         assert rec["sweeps"] > 0
         assert rec["device_profile"]["k1_kernels"] > 0

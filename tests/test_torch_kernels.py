@@ -9,6 +9,7 @@ by tests/test_torch_cuda.py.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,3 +131,65 @@ def test_member_ss_counts_domain_is_la_below_int32_max():
     t[0] = torch.from_numpy(la)
     assert _pallas(la, fd, member).tolist() == [[[1]]]
     assert kernels.member_ss_counts_plain(*t).tolist() == [[[1]]]
+
+
+# -- the batch axis (the sweep batcher's batched sweep) -----------------------
+
+# (B, W, P, S): B 1, 3 and 16, ragged W and P, S up to 3
+BATCH_SHAPES = [(1, 16, 4, 1), (3, 37, 13, 3), (3, 64, 17, 2),
+                (16, 16, 8, 1), (16, 32, 16, 2)]
+
+
+def _batch_inputs(B, W, P, S, values):
+    """B windows of K1 inputs, each made as the single-window tests make
+    theirs (random, or at the int32 edges with la below INT32_MAX)."""
+    if values == "random":
+        parts = [_inputs(W, P, S, seed=b) for b in range(B)]
+    else:
+        parts = [k1_edge_inputs(W, P, S, seed=W * P + S + b)
+                 for b in range(B)]
+    return tuple(np.stack(a) for a in zip(*parts))
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("B,W,P,S", BATCH_SHAPES)
+def test_member_ss_counts_batched_matches_vmapped_pallas(B, W, P, S, values):
+    """The batched plain version, and the wrapper on the CPU, equal the
+    Pallas kernel vmapped over the batch (as jax.vmap of the fused sweep
+    carries it, babble_tpu/ops/voting.py:319-323) in interpreter mode and
+    the vmapped einsum, bit for bit; each window equals its own 2-D call."""
+    la, fd, member = _batch_inputs(B, W, P, S, values)
+    jla, jfd, jmember = (jnp.asarray(a) for a in (la, fd, member))
+    want = np.asarray(jax.vmap(
+        lambda a, b, m: member_ss_counts_pallas(a, b, m, interpret=True)
+    )(jla, jfd, jmember))
+    ge = (jla[:, :, None, :] >= jfd[:, None, :, :]).astype(jnp.int8)
+    einsum = np.asarray(jnp.einsum(
+        "bvwp,bsp->bsvw", ge, jmember.astype(jnp.int8),
+        preferred_element_type=jnp.int32,
+    ))
+    np.testing.assert_array_equal(einsum, want)
+
+    t = [torch.from_numpy(a) for a in (la, fd, member)]
+    plain = kernels.member_ss_counts_plain(*t)
+    assert plain.dtype == torch.int32 and tuple(plain.shape) == (B, S, W, W)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(kernels.member_ss_counts(*t).numpy(), want)
+    for b in range(B):
+        assert torch.equal(
+            plain[b], kernels.member_ss_counts_plain(t[0][b], t[1][b],
+                                                     t[2][b]))
+
+
+def test_member_ss_counts_batched_rejects_bad_inputs():
+    la, fd, member = (torch.from_numpy(a)
+                      for a in _batch_inputs(3, 16, 8, 2, "random"))
+    kernels.member_ss_counts(la, fd, member)  # [B, W, P] and [B, S, P]
+    with pytest.raises(ValueError):
+        kernels.member_ss_counts(la, fd, member[0])  # a 2-D member
+    with pytest.raises(ValueError):
+        kernels.member_ss_counts(la, fd, member[:2])  # B differs
+    with pytest.raises(ValueError):
+        kernels.member_ss_counts(la, fd[:2], member)
+    with pytest.raises(ValueError):
+        kernels.member_ss_counts(la[None], fd[None], member[None])

@@ -117,3 +117,33 @@ def test_port_cpu_offload_sim_equals_jax_offload_sim(same_offload):
     # both sweep on every flush of the same schedule
     assert port_stats["accel_sweeps"] == jax_stats["accel_sweeps"]
     assert port_chains == jax_chains
+
+
+@pytest.mark.parametrize("batch", ["0", "1"])
+def test_port_resident_offload_sim_equals_jax(monkeypatch, batch):
+    """The offload with resident windows on (the JAX package's default)
+    in both packages, synchronous, every window on the device; with
+    ``BABBLE_ACCEL_BATCH=1`` every sweep also goes through each package's
+    sweep batcher. Block bytes equal."""
+    for name, val in (("BABBLE_ACCEL_MIN_WINDOW", "0"),
+                      ("BABBLE_ACCEL_PIPELINE", "0"),
+                      ("BABBLE_ACCEL_BATCH", batch)):
+        monkeypatch.setenv(name, val)
+    monkeypatch.delenv("BABBLE_ACCEL_RESIDENT", raising=False)
+    jax_chains, jax_stats = _run("babble_tpu", {"accelerator": True},
+                                 inline_compile=True)
+    port_chains, port_stats = _run(
+        "babble_tpu_torch",
+        {"accelerator": True, "accelerator_device": "cpu"},
+    )
+    _assert_agree(port_chains)
+    for stats in (port_stats, jax_stats):
+        assert stats["accel_resident"] is True
+        assert stats["accel_batcher"] is (batch == "1")
+        assert stats["accel_fallbacks"] == 0
+        assert stats["accel_rows_reused"] > 0
+    if batch == "1":
+        assert port_stats["batch_windows"] > 0
+    assert port_stats["accel_sweeps"] == jax_stats["accel_sweeps"]
+    assert port_stats["accel_rebuilds"] == jax_stats["accel_rebuilds"]
+    assert port_chains == jax_chains

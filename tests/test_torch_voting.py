@@ -172,3 +172,52 @@ def test_repad_window_matches_jax():
     fame0, rr0 = pvoting.read_sweep(port_sweep(pwin), pwin)
     np.testing.assert_array_equal(fame[:W], fame0)
     np.testing.assert_array_equal(rr[:E], rr0)
+
+
+def test_batched_sweep_matches_single_and_jax_vmap():
+    """Windows of three different shape buckets (golden DAGs and a
+    peer-set change, so S = 2), repadded to their elementwise-max bucket as
+    the sweep batcher does and swept as one batch: each row equals the
+    port's single sweep of that window (and of the unpadded window on its
+    real rows), and the whole [B, W + E] output equals the JAX package's
+    vmapped sweep (``_batched_sweep_jit``) over the same stacked windows."""
+    pairs = [golden_windows("consensus"), golden_windows("funky_full"),
+             synthetic_windows(n_peers=6, n_events=160, seed=3,
+                               peer_change=True)]
+    keys = [jvoting.bucket_key(j) for j, _ in pairs]
+    assert len(set(keys)) == 3
+    target = tuple(max(k[d] for k in keys) for d in range(5))
+    jwins = [jvoting.repad_window(j, target) for j, _ in pairs]
+    pwins = [pvoting.repad_window(p, target) for _, p in pairs]
+    for pw, jw in zip(pwins, jwins):
+        assert_windows_equal(pw, jw)
+
+    # both orders: a window must take its own round's peer-set slot, not
+    # its neighbour's
+    rev = pvoting.launch_batched(pwins[::-1], CPU).numpy()
+    got = pvoting.launch_batched(pwins, CPU).numpy()
+    np.testing.assert_array_equal(rev, got[::-1])
+    # the batcher's path: unpadded windows, padded to the target as stacked
+    raw = [p for _, p in pairs]
+    np.testing.assert_array_equal(
+        pvoting.launch_batched(raw, CPU, target).numpy(), got)
+    for (fame, rr), p, pw in zip(
+            pvoting.read_batched(got, raw, target), raw, pwins):
+        f1, r1 = pvoting.read_sweep(port_sweep(pw), pw)
+        np.testing.assert_array_equal(fame, f1[:p.n_witnesses])
+        np.testing.assert_array_equal(rr, r1[:p.n_events])
+    want = np.asarray(jvoting._batched_sweep_jit(*(
+        jnp.asarray(np.stack([np.asarray(getattr(w, f)) for w in jwins]))
+        for f in jvoting._WIN_FIELDS
+    )))
+    np.testing.assert_array_equal(got, want)
+    for row, pw, (_j, p) in zip(got, pwins, pairs):
+        np.testing.assert_array_equal(row, port_sweep(pw))
+        fame, rr = pvoting.read_sweep(row, pw)
+        fame0, rr0 = pvoting.read_sweep(port_sweep(p), p)
+        np.testing.assert_array_equal(fame[:p.n_witnesses], fame0)
+        np.testing.assert_array_equal(rr[:p.n_events], rr0)
+    for (fame, rr), pw in zip(pvoting.read_batched(got, pwins), pwins):
+        f1, r1 = pvoting.read_sweep(port_sweep(pw), pw)
+        np.testing.assert_array_equal(fame, f1)
+        np.testing.assert_array_equal(rr, r1)
