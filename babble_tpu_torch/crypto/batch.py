@@ -3,8 +3,9 @@
 The gossip sync path hands every decoded chunk of incoming events here;
 one foreign call verifies all creator + internal-transaction signatures
 and caches verdicts on the events, making the per-event ``Event.verify()``
-in the insert path a cache hit. It is the port's only batch verifier:
-device signature verification is not ported yet.
+in the insert path a cache hit. With ``BABBLE_DEVICE_VERIFY=1`` on a card
+the node verifies on the device instead (``babble_tpu_torch.ops.verify``,
+kernel K3).
 
 Reference hot loop being replaced: per-event secp256k1 verification at
 insert (src/hashgraph/hashgraph.go:672-687 -> src/crypto/keys/signature.go:20).
@@ -46,7 +47,7 @@ def collect_signature_items(events) -> Tuple[List[SigItem], List[SigSpan]]:
     signature plus one per internal transaction. Structurally invalid
     items (undecodable signature / malformed key) mark the whole event
     statically failed, same as the scalar verify path. Kept as one
-    collector so that a device batch verifier, once ported, counts the
+    collector so that the device batch verifier (ops/verify.py) counts the
     same consensus-relevant signatures as the host one."""
     items: List[SigItem] = []
     spans: List[SigSpan] = []

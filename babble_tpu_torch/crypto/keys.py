@@ -8,8 +8,9 @@
   (reference: keys/public_key.go:32-46), collision risk acknowledged there.
 
 Verification prefers the OpenSSL backend (``cryptography``) when importable,
-falling back to pure Python. Batched verification for the TPU path lives in
-``babble_tpu.ops.verify``.
+falling back to pure Python. Batched verification lives in
+``babble_tpu_torch.crypto.batch`` (the native host verifier) and
+``babble_tpu_torch.ops.verify`` (the card's, kernel K3).
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Pure-Python secp256k1 ECDSA (reference curve: src/crypto/keys/curve.go:20).
 
 This is the portable reference implementation and the oracle for the batched
-JAX verifier (babble_tpu/ops/verify.py). Affine arithmetic with modular
+card verifier (babble_tpu_torch/ops/verify.py). Affine arithmetic with modular
 inversion via pow(x, -1, p) (extended Euclid in CPython, fast enough for the
 host path); deterministic nonces per RFC 6979 so signing is reproducible.
 
 Hot-path verification should go through babble_tpu_torch.crypto.keys, which prefers
-the OpenSSL backend when available and the TPU batch verifier for bulk work.
+the native and OpenSSL backends, and the batch verifiers
+(babble_tpu_torch.crypto.batch, babble_tpu_torch.ops.verify) for bulk work.
 """
 
 from __future__ import annotations

@@ -303,8 +303,9 @@ class Event:
         """Verify the creator's signature AND every internal transaction's
         signature (reference: event.go:219-247).
 
-        If the event was prevalidated through the accelerator batch
-        verifier (babble_tpu.ops.verify.prevalidate_events), the cached
+        If the event was prevalidated through a batch verifier
+        (babble_tpu_torch.crypto.batch.prevalidate_events_host, or on the
+        card babble_tpu_torch.ops.verify.prevalidate_events), the cached
         verdict is returned without re-doing host-side ECDSA."""
         if self._sig_ok is not None:
             return self._sig_ok

@@ -3,7 +3,7 @@
 The port imports nothing of the JAX package, so state crosses over as
 dictionaries and numpy arrays: event bodies as ``EventBody.to_dict()``
 with their signatures, voting windows and DAG snapshots as their arrays and
-row metadata.
+row metadata, and prepared signature batches as their limb arrays.
 The differential tests feed both packages identical inputs this way.
 """
 
@@ -17,6 +17,7 @@ import torch
 from babble_tpu_torch.hashgraph.event import Event, EventBody
 from babble_tpu_torch.ops.dag import SNAPSHOT_FIELDS, DagSnapshot
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
+from babble_tpu_torch.ops.verify import VerifyInputs
 from babble_tpu_torch.ops.voting import WIN_FIELDS, VotingWindow
 
 # dtype of every window array, in the order of WIN_FIELDS
@@ -101,3 +102,39 @@ def snapshot_from_arrays(fields: Mapping[str, np.ndarray], meta: Mapping,
         tensors[name] = torch.tensor(arr, device=dev)
     return DagSnapshot(**tensors, n_peers=n_peers, hashes=hashes,
                        super_majority=int(meta["super_majority"]))
+
+
+def verify_inputs_from_jax(pre_ok, u1, u2, table_x, table_y, table_inf, r, rn,
+                           rn_ok, device: DeviceLike = None) -> VerifyInputs:
+    """The port's ``ops.verify`` inputs on ``device`` from the nine arrays of
+    a prepared signature batch in the JAX package's order and types
+    (``babble_tpu.ops.verify._prepare``: uint32 16-bit limbs, bool masks).
+    Raises TypeError for another dtype, ValueError for a limb of 2^16 or
+    more or an array of another shape."""
+    dev = resolve_device(device)
+    arrays = dict(zip(VerifyInputs._fields, (pre_ok, u1, u2, table_x, table_y,
+                                             table_inf, r, rn, rn_ok)))
+    B = np.asarray(pre_ok).shape[0]
+    shapes = {"pre_ok": (B,), "rn_ok": (B,), "table_inf": (B, 4),
+              "table_x": (B, 4, 16), "table_y": (B, 4, 16)}
+    tensors = {}
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        want = shapes.get(name, (B, 16))
+        if arr.shape != want:
+            raise ValueError(f"verify input {name}: shape {arr.shape}, want "
+                             f"{want}")
+        if want in ((B,), (B, 4)):
+            if arr.dtype != np.bool_:
+                raise TypeError(f"verify input {name}: dtype {arr.dtype}, "
+                                "want bool")
+        else:
+            if arr.dtype != np.uint32:
+                raise TypeError(f"verify input {name}: dtype {arr.dtype}, "
+                                "want uint32")
+            if arr.size and int(arr.max()) >= 1 << 16:
+                raise ValueError(f"verify input {name}: a limb of 2^16 or "
+                                 "more")
+            arr = arr.astype(np.int32)
+        tensors[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return VerifyInputs(**tensors)

@@ -34,16 +34,6 @@ from .validator import Validator
 logger = logging.getLogger(__name__)
 
 
-def _refuse_device_verify() -> None:
-    """Device signature verification (``BABBLE_DEVICE_VERIFY=1``) is not
-    ported: raise rather than verify on the host under that name."""
-    if os.environ.get("BABBLE_DEVICE_VERIFY") == "1":
-        raise NotImplementedError(
-            "BABBLE_DEVICE_VERIFY=1: device signature verification is not "
-            "ported yet (ROADMAP.md, Queue A item 6); unset it to verify "
-            "on the host"
-        )
-
 # All consistent hashgraphs will have decided the fame of round r witnesses
 # by round r+5, so a new peer-set becomes effective at round r+6 (whitepaper
 # lemmas 5.15 and 5.17; reference: core.go:566-569).
@@ -95,12 +85,11 @@ class Core:
 
         self.clock = clock if clock is not None else WALL
         # The reference's north-star `--accelerator` switch: it turns on
-        # the consensus offload below. Incoming sync chunks batch through
-        # the native C++ verifier either way; device verification is not
-        # ported, and asking for it (BABBLE_DEVICE_VERIFY=1) is an error.
+        # the consensus offload below, and with BABBLE_DEVICE_VERIFY=1 on a
+        # card, device verification of incoming sync chunks (K3,
+        # _batch_prevalidate); otherwise chunks batch through the native
+        # C++ verifier.
         self.accelerated_verify = accelerated_verify
-        if accelerated_verify:
-            _refuse_device_verify()
         from babble_tpu_torch.crypto import batch as _host_batch
 
         self._host_batch_verify = _host_batch.available()
@@ -320,6 +309,20 @@ class Core:
             obs("decode", self.clock.perf_counter() - t0)
         return decoded, j
 
+    def _device_verify(self) -> bool:
+        """Whether sync chunks verify on the card (K3): opt-in
+        (``BABBLE_DEVICE_VERIFY=1``) with ``--accelerator`` on a CUDA
+        device, as the JAX package asks for a live accelerator
+        (babble_tpu/node/core.py:323-344). With ``accelerator_device``
+        "cpu" the chunk takes the native host batch verifier, the
+        reference's rule on its CPU fallback: the caller asked for the
+        CPU, so nothing is hidden, and no card run is claimed."""
+        return (
+            self.accelerated_verify
+            and os.environ.get("BABBLE_DEVICE_VERIFY") == "1"
+            and self.hg.accel.device.type == "cuda"
+        )
+
     def _batch_prevalidate(self, decoded: List[Event]) -> None:
         """Verify a decoded chunk's signatures in one batch call, then
         pinpoint offenders: events the batch flagged are re-checked
@@ -329,15 +332,19 @@ class Core:
         reject)."""
         obs = self._stage_obs
         t_verify = self.clock.perf_counter() if obs is not None else 0.0
-        if self.accelerated_verify:
-            _refuse_device_verify()
-        from babble_tpu_torch.crypto.batch import prevalidate_events_host
+        if self._device_verify():
+            from babble_tpu_torch.ops.verify import prevalidate_events
 
-        if not prevalidate_events_host(decoded):
-            # Native library unavailable: scalar verify at insert.
-            if obs is not None:
-                obs("batch_verify", self.clock.perf_counter() - t_verify)
-            return
+            # no fallback: a build, launch or CUDA error raises out of here
+            prevalidate_events(decoded, self.hg.accel.device)
+        else:
+            from babble_tpu_torch.crypto.batch import prevalidate_events_host
+
+            if not prevalidate_events_host(decoded):
+                # Native library unavailable: scalar verify at insert.
+                if obs is not None:
+                    obs("batch_verify", self.clock.perf_counter() - t_verify)
+                return
         self.ingest_batch_verifies += 1
         if len(decoded) > self.ingest_batch_size_max:
             self.ingest_batch_size_max = len(decoded)

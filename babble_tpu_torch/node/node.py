@@ -301,14 +301,21 @@ class Node(StateManager):
             # The offload's device was resolved, and its kernels built,
             # when Core made its TensorConsensus: the card unless the
             # config names the CPU, and no card raised there, with no CPU
-            # fallback. Nothing compiles while the node runs, so there is
-            # no prewarm.
+            # fallback. Nothing compiles while the node runs, so the
+            # offload needs no prewarm.
             if self.conf.accelerator_mesh > 1:
                 raise NotImplementedError(
                     f"--accelerator-mesh {self.conf.accelerator_mesh}: "
                     "multi-device sweeps are not ported yet (ROADMAP.md, "
                     "Queue A item 4)"
                 )
+            if self.core._device_verify():
+                # Device signature verification is opt-in; when asked for
+                # on a card, build its kernel and verify one signature
+                # before gossip starts (babble_tpu/node/node.py:363-372).
+                from babble_tpu_torch.ops.verify import warmup
+
+                warmup(self.core.hg.accel.device)
         if self.conf.bootstrap:
             self.core.bootstrap()
             with self.core_lock:

@@ -1,2 +1,4 @@
-"""Device side of the live consensus offload: device resolution, the exact
-0/1 tally, the hand-written CUDA kernels and the fused voting sweep."""
+"""Device side of the port: device resolution, the exact 0/1 tally, the
+hand-written CUDA kernels, the fused voting sweep and the DAG pipeline of
+the consensus offload, and batched signature verification (``verify``, on
+the field layer ``limbs``)."""

@@ -9,6 +9,8 @@ The library name carries a hash over every source and header under
 
 A wrapper takes its plain version only for tensors on the CPU (the tests).
 For CUDA tensors it launches the kernel or raises: there is no fallback.
+K3's plain version is the ladder in ``ops/verify.py``, whose ``shamir``
+takes it for CPU tensors; K3's launchers here take CUDA tensors only.
 Each wrapper counts its launches in a ``launches`` attribute, under a lock:
 co-located nodes launch from many threads at once.
 """
@@ -99,6 +101,14 @@ def build() -> str:
             ctypes.c_void_p,
         ]
         lib.bt_strongly_see.restype = ctypes.c_int
+        lib.bt_ecdsa_shamir.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.bt_ecdsa_shamir.restype = ctypes.c_int
+        lib.bt_field_ops.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.bt_field_ops.restype = ctypes.c_int
         lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 3
         lib.bt_strongly_see_tile.argtypes = [ctypes.c_int] * 2
         for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile):
@@ -312,14 +322,117 @@ def strongly_see_tile(E: int, B: int) -> int:
     return _lib.bt_strongly_see_tile(E, B)
 
 
+# =============================================================================
+# K3: the Shamir ladder of batched ECDSA verification (csrc/ecdsa_verify.cu)
+# =============================================================================
+
+
+def _on_card(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: needs CUDA tensors, got {t.device}")
+    if _lib is None:
+        build()
+
+
+def check_ecdsa_inputs(u1, u2, table_x, table_y, table_inf, r, rn,
+                       rn_ok) -> None:
+    """Raise unless K3's inputs are int32 limbs [B, 16] (u1, u2, r, rn) and
+    [B, 4, 16] (the table), bool [B, 4] (table_inf) and [B] (rn_ok), all
+    on one device."""
+    B = u1.shape[0] if u1.dim() == 2 else -1
+    limbs = {"u1": u1, "u2": u2, "r": r, "rn": rn, "table_x": table_x,
+             "table_y": table_y}
+    for name, t in limbs.items():
+        want = (B, 4, 16) if name.startswith("table") else (B, 16)
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 limbs, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    for name, t, want in (("table_inf", table_inf, (B, 4)),
+                          ("rn_ok", rn_ok, (B,))):
+        if t.dtype != torch.bool:
+            raise TypeError(f"{name} must be bool, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    devices = {t.device for t in (u1, u2, table_x, table_y, table_inf, r, rn,
+                                  rn_ok)}
+    if len(devices) != 1:
+        raise ValueError(f"K3 inputs on several devices: {devices}")
+
+
+def ecdsa_shamir(u1, u2, table_x, table_y, table_inf, r, rn,
+                 rn_ok) -> torch.Tensor:
+    """K3 on CUDA tensors: [B] bool, whether x(u1 G + u2 Q) = r (mod n),
+    for limbs in [0, 2^16). ``ops.verify.shamir`` takes the plain version
+    for CPU tensors; this launches the kernel or raises."""
+    args = (u1, u2, table_x, table_y, table_inf, r, rn, rn_ok)
+    check_ecdsa_inputs(*args)
+    _on_card(u1, "ecdsa_shamir")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("ecdsa_shamir: inputs must be contiguous")
+    B = u1.shape[0]
+    out = torch.empty(B, dtype=torch.bool, device=u1.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(u1.device):
+        stream = torch.cuda.current_stream(u1.device).cuda_stream
+        rc = _lib.bt_ecdsa_shamir(*(t.data_ptr() for t in args),
+                                  out.data_ptr(), B, stream)
+    _check_launch(rc, "ecdsa_shamir")
+    with _count_lock:
+        ecdsa_shamir.launches += 1
+    return out
+
+
+ecdsa_shamir.launches = 0
+
+#: bt_field_ops' operation codes
+FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3}
+
+
+def field_ops(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A test entry on K3's device functions: int32 [B, 16] limbs of
+    a * b, a^2, a + b or a - b mod p (``op`` a key of FIELD_OPS; b is read
+    but unused for "sqr"), computed on the card. CUDA tensors only."""
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"field_ops: limbs must be int32, got {a.dtype}/"
+                        f"{b.dtype}")
+    if a.dim() != 2 or a.shape[1] != 16 or b.shape != a.shape:
+        raise ValueError(f"field_ops: a and b must both be [B, 16], got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("field_ops: inputs must be contiguous")
+    if a.device != b.device:
+        raise ValueError("field_ops: a and b must be on one device")
+    _on_card(a, "field_ops")
+    out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _lib.bt_field_ops(FIELD_OPS[op], a.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), a.shape[0], stream)
+    _check_launch(rc, "field_ops")
+    with _count_lock:
+        field_ops.launches += 1
+    return out
+
+
+field_ops.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     with _count_lock:
         member_ss_counts.launches = 0
         strongly_see.launches = 0
+        ecdsa_shamir.launches = 0
+        field_ops.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launch count per kernel wrapper."""
     return {"member_ss_counts": member_ss_counts.launches,
-            "strongly_see": strongly_see.launches}
+            "strongly_see": strongly_see.launches,
+            "ecdsa_shamir": ecdsa_shamir.launches,
+            "field_ops": field_ops.launches}

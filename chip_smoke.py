@@ -8,8 +8,9 @@ Needs one CUDA card, nvcc (CUDA_HOME, default /usr/local/cuda) and g++;
 imports only babble_tpu_torch, torch, numpy and the standard library.
 Phases, each of which fails the run (non-zero exit) on any error:
 
-1. device and build: the card, its power limit, the kernel library (K1 and
-   K2, built from csrc/) and native crypto builds, the host-crypto path;
+1. device and build: the card, its power limit, the kernel library (K1, K2
+   and K3, built from csrc/) and native crypto builds, the host-crypto
+   path;
 2. the launch floor (an empty kernel's device time), then every kernel
    against its plain PyTorch version on the card, bit for bit, on random
    coordinates and on coordinates at the edges of int32 (per-peer bases up
@@ -65,11 +66,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    which they must agree on, each with device sweeps, resident windows on,
    the batcher as set, no fallback, and time held in the shared slots
    without it; ``/profile?format=torch`` on one of them must hold CUDA
-   kernel records.
+   kernel records;
+10. device signature verification (K3, ``ops/verify.py``): the field layer
+   on the card (``kernels.field_ops``) equal to Python integers at the
+   edges and on 4096 random pairs; 4096 signatures from 64 keys, one in
+   eight corrupted (CORRUPTIONS) and three that take the ladder's rare
+   cases, on whose verdicts K3, the plain ladder on the card, the native
+   verifier, the Python oracle and ``batch_verify`` agree; at B = 1 to
+   16384, K3's device ms beside its bound, host ``_prepare`` and end-to-end
+   ``batch_verify`` µs a signature beside the native verifier's, and the
+   first B at which ``batch_verify`` beats it (or "none"); then four port
+   Nodes over loopback TCP with ``--accelerator`` to block 3, with the host
+   verifier and with ``BABBLE_DEVICE_VERIFY=1``: identical blocks, node 0's
+   chain equal to a host replay, no single re-check, no offload fallback,
+   and with device verification one K3 launch per batch verification
+   (counted from 0 once the nodes are up), with the median time of a batch
+   verification in each arm.
 
 For each live path (the replays of phases 3 and 4, and the node cluster of
 phase 8: its batched waves and its per-node sweeps), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
+often; K3 likewise at the batch size phase 10's cluster gave it most
 often. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -78,7 +95,7 @@ last is the kernels' JSON record; the last line is
 
 runs phase 2's timings only, in each given checkout of the repo in turn
 (each builds its own kernels in a fresh process), and exits: two commits
-compared on one card. ``--nodes-ab`` does the same with phase 8's node
+compared on one card; K3 (B 64 and 4096) only where every tree has it. ``--nodes-ab`` does the same with phase 8's node
 cluster.
 """
 
@@ -1806,6 +1823,518 @@ def cli_cluster() -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 10: device signature verification (K3) ---------------------------
+
+# the verdict batch: signatures from VERIFY_KEYS keys, about one in eight
+# corrupted (CORRUPTIONS in turn), and the ladder's rare cases
+VERIFY_N = 4096
+VERIFY_KEYS = 64
+# batch sizes timed; the timing batch repeats the verdict batch
+VERIFY_TIMED_B = (1, 64, 256, 1024, 4096, 16384)
+# how many ways a signature is made invalid, in order (signature_batch)
+CORRUPTIONS = ("wrong hash", "r + 1", "r - 1", "s + 1", "s - 1", "r = 0",
+               "r = n", "s = 0", "wrong key", "key off the curve", "Q = -G")
+# the 4-node cluster: run until every node has committed this block
+VERIFY_CLUSTER_NODES = 4
+VERIFY_BLOCK = 3
+VERIFY_CLUSTER_S = 90.0
+# H100 SXM: 32-bit integer multiplies a clock per SM for compute capability
+# 9.0 (CUDA C Programming Guide, arithmetic instruction throughput), SMs
+INT_MULS_PER_CLOCK_SM = 64
+H100_SMS = 132
+# multiply instructions per field multiplication or squaring in K3: 64
+# 32 x 32-bit partial products, low and high words (the folds' few
+# multiplies by 977 are not counted)
+MULS_PER_FIELD_MUL = 128
+# field multiplications: a doubling (2M + 5S), a mixed addition (8M + 3S),
+# the final projective check (Z^2, r Z^2, rn Z^2)
+FIELD_MULS_DOUBLE = 7
+FIELD_MULS_ADD = 11
+FIELD_MULS_CHECK = 3
+
+
+def field_edge_pairs():
+    """(x, y) pairs at the edges of K3's field layer: every pair of edge
+    values below p, (p - 1)^2 (its reduction ends in the conditional
+    subtract of p), and a product whose second fold carries out of 2^256
+    (2^255 times a constructed y)."""
+    from babble_tpu_torch.ops.limbs import P_INT
+
+    edges = [0, 1, 2, 977, (1 << 32) + 977, P_INT - (1 << 32), 1 << 255,
+             (1 << 255) + 12345, P_INT - 2, P_INT - 1]
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs.append((1 << 255, int("459169e1800aea6656576f707c4fb3b5"
+                                "93d32806d7243de4eeafc94d1320c0db", 16)))
+    return pairs
+
+
+def check_field_ops(seed: int, n_random: int = 4096) -> int:
+    """K3's field layer on the card (``kernels.field_ops``) equal to Python
+    integers for mul, sqr, add and sub mod p at the edges and on
+    ``n_random`` random pairs. Returns the pairs checked."""
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.ops.limbs import P_INT, ints_to_limbs
+
+    rng = random.Random(seed)
+    pairs = field_edge_pairs() + [(rng.randrange(P_INT), rng.randrange(P_INT))
+                                  for _ in range(n_random)]
+    xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
+    a, b = ints_to_limbs(xs).cuda(), ints_to_limbs(ys).cuda()
+    want = {"mul": lambda x, y: x * y % P_INT, "sqr": lambda x, y: x * x % P_INT,
+            "add": lambda x, y: (x + y) % P_INT,
+            "sub": lambda x, y: (x - y) % P_INT}
+    for op, fn in want.items():
+        got = kernels.field_ops(op, a, b).cpu().numpy().astype("<u2")
+        vals = [int.from_bytes(row.tobytes(), "little") for row in got]
+        bad = [i for i, (x, y) in enumerate(pairs) if vals[i] != fn(x, y)]
+        if bad:
+            raise AssertionError(f"K3 field {op}: {len(bad)} of {len(pairs)}"
+                                 f" differ from Python ints, first {bad[:5]}")
+    return len(pairs)
+
+
+def verify_vectors():
+    """The 21 vectors of the JAX package's verifier tests
+    (tests/test_ops_verify.py::_vectors, built the same way from seed 11
+    with the port's curve): 12 valid signatures, then a wrong hash, r + 1,
+    s + 1, r = 0, r = n, s = 0, a wrong key, a key off the curve and
+    Q == -G (whose G + Q table entry is infinite)."""
+    import hashlib
+
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    rng = random.Random(11)
+    items = []
+    for i in range(12):
+        d = rng.randrange(1, ref.N)
+        pub = ref.pubkey_from_scalar(d)
+        h = hashlib.sha256(f"msg {i}".encode()).digest()
+        r, s = ref.sign(d, h)
+        items.append((pub, h, r, s))
+    d = rng.randrange(1, ref.N)
+    pub = ref.pubkey_from_scalar(d)
+    h = hashlib.sha256(b"a").digest()
+    r, s = ref.sign(d, h)
+    return items + [
+        (pub, hashlib.sha256(b"b").digest(), r, s),
+        (pub, h, (r + 1) % ref.N, s),
+        (pub, h, r, (s + 1) % ref.N),
+        (pub, h, 0, s),
+        (pub, h, ref.N, s),
+        (pub, h, r, 0),
+        (ref.pubkey_from_scalar(d + 1), h, r, s),
+        ((pub[0], (pub[1] + 1) % ref.P), h, r, s),
+        ((ref.GX, ref.P - ref.GY), h, 12345, 67890),
+    ]
+
+
+def ladder_edge_items():
+    """Valid and invalid signatures whose ladders take the mixed addition's
+    rare cases: P1 == P2 (u1 = 2, u2 = 1, Q = 2G: a doubling inside the
+    addition, R = 4G), P1 == -P2 followed by a lift (u1 = 5, u2 = 2,
+    Q = -2G: R = G) and R at infinity (u1 = 4, u2 = 2, Q = -2G). Each is
+    (pub, hash, r, s), made from u1 = e / s and u2 = r / s (mod n)."""
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    n = ref.N
+    g2 = ref.point_mul(2, ref.G)
+    neg_g2 = (g2[0], ref.P - g2[1])
+    r4 = ref.point_mul(4, ref.G)[0] % n
+    rg = ref.GX % n
+    half = rg * pow(2, -1, n) % n  # s with u2 = r / s = 2
+    return [
+        (g2, (2 * r4 % n).to_bytes(32, "big"), r4, r4),
+        (neg_g2, (5 * half % n).to_bytes(32, "big"), rg, half),
+        (neg_g2, (4 * half % n).to_bytes(32, "big"), rg, half),
+    ]
+
+
+def signature_batch(n: int, n_keys: int, seed: int):
+    """``n`` ECDSA items (pub, hash, r, s) from ``n_keys`` seeded keys, signed
+    by the native library (pure Python where it is missing); every eighth
+    is corrupted, by each way of CORRUPTIONS in turn."""
+    import hashlib
+
+    from babble_tpu_torch import native_crypto
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    rng = random.Random(seed)
+    privs = [rng.randrange(1, ref.N) for _ in range(n_keys)]
+    pubs = [native_crypto.pubkey(d.to_bytes(32, "big"))
+            or ref.pubkey_from_scalar(d) for d in privs]
+    items = []
+    for i in range(n):
+        k = i % n_keys
+        h = hashlib.sha256(f"{seed} {i}".encode()).digest()
+        r, s = (native_crypto.sign(privs[k].to_bytes(32, "big"), h)
+                or ref.sign(privs[k], h))
+        pub = pubs[k]
+        if i % 8 == 7:
+            how = CORRUPTIONS[(i // 8) % len(CORRUPTIONS)]
+            if how == "wrong hash":
+                h = hashlib.sha256(h).digest()
+            elif how in ("r + 1", "r - 1"):
+                r = (r + (1 if how == "r + 1" else -1)) % ref.N
+            elif how in ("s + 1", "s - 1"):
+                s = (s + (1 if how == "s + 1" else -1)) % ref.N
+            elif how == "r = 0":
+                r = 0
+            elif how == "r = n":
+                r = ref.N
+            elif how == "s = 0":
+                s = 0
+            elif how == "wrong key":
+                pub = pubs[(k + 1) % n_keys]
+            elif how == "key off the curve":
+                pub = (pub[0], (pub[1] + 1) % ref.P)
+            else:
+                pub = (ref.GX, ref.P - ref.GY)
+        items.append((pub, h, r, s))
+    return items
+
+
+def native_verify_items(items):
+    """The native batch verifier on ``items``, as the node's host path calls
+    it (crypto.batch.prevalidate_events_host without its verdict cache)."""
+    from babble_tpu_torch import native_crypto
+
+    pubs = [x.to_bytes(32, "big") + y.to_bytes(32, "big")
+            for (x, y), _, _, _ in items]
+    got = native_crypto.verify_batch(pubs, [h for _, h, _, _ in items],
+                                     [(r, s) for _, _, r, s in items])
+    if got is None:
+        raise AssertionError("native crypto library unavailable")
+    return got
+
+
+def _oracle_chunk(items):
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    return [ref.verify(*it) for it in items]
+
+
+def oracle_verdicts(items, workers: int = 8):
+    """``crypto.secp256k1.verify`` (pure Python) of every item, over
+    ``workers`` spawned processes, which are shut down before it returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    chunks = [items[i:i + 64] for i in range(0, len(items), 64)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        return [v for part in pool.map(_oracle_chunk, chunks) for v in part]
+
+
+def k3_field_muls(inputs) -> int:
+    """Field multiplications K3 does on ``inputs`` (a VerifyInputs): per
+    signature 256 doublings, a mixed addition at every step whose table
+    entry is finite after the first such step (that one lifts the entry),
+    and the final check where the ladder's point is finite. Doublings
+    inside an addition (P1 == P2) are not counted."""
+    import numpy as np
+
+    u1 = inputs.u1.cpu().numpy().astype(np.int64)
+    u2 = inputs.u2.cpu().numpy().astype(np.int64)
+    tinf = inputs.table_inf.cpu().numpy()
+    shifts = np.arange(16)
+    bits1 = ((u1[:, :, None] >> shifts) & 1).reshape(len(u1), 256)
+    bits2 = ((u2[:, :, None] >> shifts) & 1).reshape(len(u2), 256)
+    sel = bits1 + 2 * bits2
+    finite = (sel != 0) & ~np.take_along_axis(tinf, sel, axis=1)
+    n_finite = finite.sum(1)
+    adds = np.maximum(n_finite - 1, 0)
+    return int((256 * FIELD_MULS_DOUBLE + FIELD_MULS_CHECK * (n_finite > 0)
+                + FIELD_MULS_ADD * adds).sum())
+
+
+def sm_clock_mhz() -> float:
+    """The SM's maximum clock as nvidia-smi reports it (clocks.max.sm)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True, timeout=30).stdout
+    return float(out.splitlines()[0])
+
+
+def k3_bound_ms(inputs, clock_mhz: float):
+    """Least time for K3's work on an H100 SXM: its integer multiplies
+    (``k3_field_muls`` x MULS_PER_FIELD_MUL) at 64 a clock on each of 132
+    SMs at ``clock_mhz``, or its bytes (inputs read once, the verdicts
+    written once, 775 a signature) at HBM rate, whichever is larger."""
+    B = inputs.u1.shape[0]
+    muls = k3_field_muls(inputs) * MULS_PER_FIELD_MUL
+    t_ops = muls / (INT_MULS_PER_CLOCK_SM * H100_SMS * clock_mhz * 1e6) * 1e3
+    t_bytes = B * (4 * 16 * 4 + 2 * 4 * 16 * 4 + 4 + 1 + 1) / PEAK_BYTES_PER_S
+    t_bytes *= 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k3_against_plain(items, clock_mhz: float) -> dict:
+    """K3 on ``items``' prepared inputs equal to its plain version on the
+    card, bool for bool; K3 timed (CUDA events, median of 30), the plain
+    version timed once (host clock), and K3's bound on these inputs."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels, verify
+
+    inputs = verify._prepare(items, torch.device("cuda"))
+    k3 = verify.shamir(*inputs[1:])
+    t0 = time.perf_counter()
+    plain = verify.shamir_plain(*inputs[1:])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((k3.int() - plain.int()).abs().max())
+    if err:
+        raise AssertionError(f"K3 differs from its plain version at B "
+                             f"{len(items)}: {int((k3 != plain).sum())} "
+                             "verdicts")
+    return {"B": len(items), "inputs": inputs, "k3": k3, "max_abs_err": err,
+            "plain_ms": plain_ms,
+            "ms": time_on_device(lambda: kernels.ecdsa_shamir(*inputs[1:])),
+            "bound": k3_bound_ms(inputs, clock_mhz)}
+
+
+def check_verdicts(items, clock_mhz: float) -> dict:
+    """K3 (on its own and through ``batch_verify``), the plain ladder on the
+    card, the native verifier and the Python oracle agree on every item's
+    verdict; returns ``k3_against_plain``'s record with the verdicts'
+    counts."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch.ops import verify
+
+    rec = k3_against_plain(items, clock_mhz)
+    k3 = (rec["k3"] & rec["inputs"].pre_ok).cpu().numpy()
+    e2e = verify.batch_verify(items, torch.device("cuda"))
+    native = np.array(native_verify_items(items))
+    t0 = time.perf_counter()
+    oracle = np.array(oracle_verdicts(items))
+    rec["oracle_s"] = time.perf_counter() - t0
+    for name, got in (("K3 and its plain version", k3), ("native", native),
+                      ("batch_verify", e2e)):
+        if not np.array_equal(got, oracle):
+            bad = np.flatnonzero(got != oracle)
+            raise AssertionError(f"verdicts of {name} differ from the oracle "
+                                 f"at {len(bad)} of {len(items)}, first "
+                                 f"{bad[:5].tolist()}")
+    rec.update(valid=int(oracle.sum()), invalid=int((~oracle).sum()))
+    return rec
+
+
+def verify_times(items, clock_mhz: float) -> list:
+    """At each B of VERIFY_TIMED_B (the first B of ``items``): K3's device ms
+    (CUDA events, median of 30), its bound, host ``_prepare`` µs a
+    signature, end-to-end ``batch_verify`` µs a signature and the native
+    verifier's µs a signature from the same items (host clock, median of
+    3 after one warm-up run)."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels, verify
+
+    dev = torch.device("cuda")
+    rows = []
+    for B in VERIFY_TIMED_B:
+        part = items[:B]
+        inputs = verify._prepare(part, dev)
+        ms = time_on_device(lambda: kernels.ecdsa_shamir(*inputs[1:]))
+        bound_ms, bound_by = k3_bound_ms(inputs, clock_mhz)
+
+        row = {"B": B, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "prepare_us": _wall_ms(lambda: verify._prepare(part, dev), 3)
+               / B * 1e3,
+               "batch_verify_us": _wall_ms(
+                   lambda: verify.batch_verify(part, dev), 3) / B * 1e3,
+               "native_us": _wall_ms(lambda: native_verify_items(part), 3)
+               / B * 1e3}
+        rows.append(row)
+        log(f"[verify] B {B}: K3 {ms:.4f} ms, bound {bound_ms:.4g} ms "
+            f"({bound_by}, {bound_ms / ms:.2%} of it); host _prepare "
+            f"{row['prepare_us']:.2f} µs/sig; batch_verify "
+            f"{row['batch_verify_us']:.2f} µs/sig; native "
+            f"{row['native_us']:.2f} µs/sig")
+    return rows
+
+
+def verify_cluster_arm(label: str, device_verify: bool) -> dict:
+    """VERIFY_CLUSTER_NODES port Nodes (``--accelerator``, the offload at its
+    defaults) over loopback TCP under closed-loop load until every node has
+    committed block VERIFY_BLOCK, with ``BABBLE_DEVICE_VERIFY=1`` or
+    without it. Checks identical blocks, node 0's chain against a host
+    replay of its events, no single re-checks and no offload fallback;
+    with device verification, K3 launches (counted from 0 once the nodes
+    are up) equal the cores' batch verifies, and without it K3 never
+    launches. Each core's batch verification is timed per call."""
+    import os
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.crypto.batch import collect_signature_items
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.ops import kernels
+
+    saved = os.environ.get("BABBLE_DEVICE_VERIFY")
+    if device_verify:
+        os.environ["BABBLE_DEVICE_VERIFY"] = "1"
+    else:
+        os.environ.pop("BABBLE_DEVICE_VERIFY", None)
+    nodes, loader = [], None
+    stop = threading.Event()
+    lock = threading.Lock()
+    calls = []  # (seconds, signatures) per batch verification
+    try:
+        kernels.reset_launch_counts()
+        nodes, proxies, states = tcp_cluster(VERIFY_CLUSTER_NODES, True)
+        warmups = kernels.launch_counts()["ecdsa_shamir"]
+        for node in nodes:
+            def timed(decoded, orig=node.core._batch_prevalidate):
+                n_items = len(collect_signature_items(decoded)[0])
+                t0 = time.perf_counter()
+                orig(decoded)
+                with lock:
+                    calls.append((time.perf_counter() - t0, n_items))
+            node.core._batch_prevalidate = timed
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        for node in nodes:
+            node.run_async()
+        loader = threading.Thread(
+            target=Pump(proxies, states).until,
+            args=(t0 + VERIFY_CLUSTER_S, stop), daemon=True)
+        loader.start()
+        while (min(node.get_last_block_index() for node in nodes)
+               < VERIFY_BLOCK and time.monotonic() - t0 < VERIFY_CLUSTER_S):
+            time.sleep(0.1)
+        run_s = time.monotonic() - t0
+    finally:
+        stop.set()
+        # all at once: each node waits up to 2 s for its gossip routines
+        stoppers = [threading.Thread(target=node.shutdown) for node in nodes]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join(timeout=120)
+        if loader is not None:
+            loader.join(timeout=10)
+        for node in nodes:
+            with node.core_lock:  # a sync still in flight finishes first
+                pass
+        if saved is None:
+            os.environ.pop("BABBLE_DEVICE_VERIFY", None)
+        else:
+            os.environ["BABBLE_DEVICE_VERIFY"] = saved
+    deadline = time.monotonic() + 60
+    while not SweepBatcher.instance().idle():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[verify/{label}] the sweep batcher never "
+                                 "went idle")
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["ecdsa_shamir"]
+    common = check_cluster_blocks(f"verify/{label}", nodes)
+    if common < VERIFY_BLOCK:
+        raise AssertionError(f"[verify/{label}] common block {common} < "
+                             f"{VERIFY_BLOCK} after {run_s:.1f} s")
+    cores = [node.core for node in nodes]
+    rec = {
+        "arm": label, "run_s": run_s, "common_block": common,
+        "warmup_launches": warmups, "launches": launches,
+        "batch_verifies": sum(c.ingest_batch_verifies for c in cores),
+        "fallback_singles": sum(c.ingest_fallback_singles for c in cores),
+        "fallbacks": sum(c.hg.accel.fallbacks for c in cores),
+        "calls": len(calls),
+        "median_ms": 1e3 * statistics.median(t for t, _ in calls),
+        "signatures": Counter(n for _, n in calls),
+    }
+    if rec["fallback_singles"] or rec["fallbacks"]:
+        raise AssertionError(f"[verify/{label}] single re-checks "
+                             f"{rec['fallback_singles']}, offload fallbacks "
+                             f"{rec['fallbacks']}")
+    if device_verify:
+        if warmups != VERIFY_CLUSTER_NODES:
+            raise AssertionError(f"[verify/{label}] {warmups} warm-up "
+                                 "launches, not one a node")
+        if not 0 < launches == rec["batch_verifies"]:
+            raise AssertionError(f"[verify/{label}] K3 launches {launches} "
+                                 f"!= batch verifies {rec['batch_verifies']}"
+                                 " (or none)")
+    elif launches or warmups:
+        raise AssertionError(f"[verify/{label}] the host arm launched K3")
+    rec["replayed_events"] = replay_own_events(f"verify/{label}", nodes[0])
+    log(f"[verify/{label}] {VERIFY_CLUSTER_NODES} nodes to block {common} in "
+        f"{run_s:.1f} s: batch verifications {rec['calls']}, median "
+        f"{rec['median_ms']:.3f} ms a call; K3 launches {launches} (warm-up "
+        f"{warmups}), batch verifies {rec['batch_verifies']}; signatures a "
+        f"call {dict(sorted(rec['signatures'].items()))}; node 0 = host "
+        f"replay of {rec['replayed_events']} events")
+    return rec
+
+
+def k3_row(label: str, rec: dict, launches: int,
+           launches_on_path: int) -> dict:
+    """K3's kernels-line row from a ``k3_against_plain`` record."""
+    return {
+        "name": f"ecdsa_shamir[{label}, B {rec['B']}]",
+        "route": "cuda",
+        "source": "babble_tpu_torch/csrc/ecdsa_verify.cu",
+        "replaces": "babble_tpu/ops/verify.py:127",
+        "launches": launches,
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound"][0],
+        "bound_by": rec["bound"][1],
+        "library_ms": None,
+        "shape": [rec["B"]],
+        "launches_on_path": launches_on_path,
+    }
+
+
+def device_verification(seed: int) -> list:
+    """Phase 10; returns K3's rows of the kernels line."""
+    t0 = time.perf_counter()
+    n_pairs = check_field_ops(seed)
+    log(f"[verify] field layer on the card = Python ints: mul, sqr, add, sub "
+        f"on {n_pairs} pairs ({time.perf_counter() - t0:.1f} s)")
+    clock = sm_clock_mhz()
+
+    t0 = time.perf_counter()
+    items = (signature_batch(VERIFY_N - 3, VERIFY_KEYS, seed)
+             + ladder_edge_items())
+    log(f"[verify] {len(items)} signatures from {VERIFY_KEYS} keys in "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
+    ver = check_verdicts(items, clock)
+    log(f"[verify] B {ver['B']}: K3 = plain on the card = native = Python "
+        f"oracle = batch_verify on every verdict ({ver['valid']} valid, "
+        f"{ver['invalid']} invalid; oracle {ver['oracle_s']:.1f} s); K3 "
+        f"{ver['ms']:.4f} ms, plain {ver['plain_ms']:.1f} ms")
+    at64 = k3_against_plain(items[:64], clock)
+    log(f"[verify] B 64: K3 = plain on the card; K3 {at64['ms']:.4f} ms, "
+        f"shamir_plain {at64['plain_ms']:.1f} ms (one run)")
+
+    rows = verify_times(items * (VERIFY_TIMED_B[-1] // len(items)), clock)
+    wins = [r["B"] for r in rows if r["batch_verify_us"] < r["native_us"]]
+    log(f"[verify] batch_verify first beats the native verifier at B "
+        f"{wins[0] if wins else 'none'} (SM clock {clock:.0f} MHz)")
+
+    # the node path: counts from 0 once the nodes are up
+    host = verify_cluster_arm("host verifier", False)
+    card = verify_cluster_arm("BABBLE_DEVICE_VERIFY=1", True)
+    log(f"[verify] median batch verification a sync: card "
+        f"{card['median_ms']:.3f} ms, host {host['median_ms']:.3f} ms")
+    by_b = card["signatures"]
+    path_b = max(by_b, key=by_b.get)
+    at_path = k3_against_plain(items[:path_b], clock)
+    log(f"[verify] B {path_b}, the node path's most frequent: K3 = plain on "
+        f"the card; K3 {at_path['ms']:.4f} ms, plain "
+        f"{at_path['plain_ms']:.1f} ms")
+    return [k3_row(label, rec, by_b.get(rec["B"], 0), card["launches"])
+            for label, rec in (("node path, most frequent", at_path),
+                               ("timed", at64), ("verdicts", ver))]
+
+
 # Run in a tree of the repo (this one or an earlier commit's) by
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
@@ -1815,10 +2344,25 @@ import chip_smoke as c
 from babble_tpu_torch.ops import kernels
 kernels.build()
 k1, k2 = json.loads(sys.argv[1])
+k3 = None
+if hasattr(kernels, "ecdsa_shamir"):
+    import hashlib
+    from babble_tpu_torch.crypto import secp256k1 as ref
+    from babble_tpu_torch.ops import verify
+    items = []
+    for i in range(64):
+        h = hashlib.sha256(b"ab %d" % i).digest()
+        items.append((ref.pubkey_from_scalar(i + 2), h,
+                      *ref.sign(i + 2, h)))
+    k3 = {}
+    for B in (64, 4096):
+        inp = verify._prepare(items * (B // 64), "cuda")
+        k3[B] = c.time_on_device(lambda: kernels.ecdsa_shamir(*inp[1:]))
 print("AB " + json.dumps({
     "floor_ms": c.time_on_device(lambda: torch.cuda._sleep(0)),
     "k1": [c.check_k1(tuple(s), seed=1 + i)["ms"] for i, s in enumerate(k1)],
     "k2": [c.check_k2(tuple(s), seed=51 + i)["ms"] for i, s in enumerate(k2)],
+    "k3": k3,
 }))
 """
 
@@ -1856,6 +2400,15 @@ def kernel_ab(trees) -> None:
             ms = [r[key][idx] for r in recs]
             log(f"[ab] {tree} {kind} {shape}: median {statistics.median(ms):.5f}"
                 f" ms of {[round(m, 5) for m in ms]}")
+    if all(rec.get("k3") for _, rec in runs):
+        for tree, recs in by_tree.items():
+            for B in ("64", "4096"):
+                ms = [r["k3"][B] for r in recs]
+                log(f"[ab] {tree} K3 B {B}: median "
+                    f"{statistics.median(ms):.5f} ms of "
+                    f"{[round(m, 5) for m in ms]}")
+    else:
+        log("[ab] K3 not timed: a tree has no K3")
 
 
 def nodes_ab(trees) -> None:
@@ -2054,6 +2607,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cli_cluster()
     log(f"[cli] phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # Phase 10: device signature verification, K3; counts from 0 for the
+    # node path once its nodes are up
+    t0 = time.perf_counter()
+    rows += device_verification(args.seed + 10)
+    log(f"[verify] phase 10: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

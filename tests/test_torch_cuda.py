@@ -28,13 +28,20 @@ from babble_tpu_torch.peers import Peer, PeerSet
 
 from chip_smoke import (
     Pump,
+    check_field_ops,
     cluster_arm,
     edge_coordinates,
     edge_super_majority,
+    field_edge_pairs,
     http_get,
     k1_edge_inputs,
+    ladder_edge_items,
+    native_verify_items,
+    oracle_verdicts,
+    signature_batch,
     tcp_cluster,
     trace_device_summary,
+    verify_vectors,
 )
 
 INT32_MAX = np.int32(2**31 - 1)
@@ -83,7 +90,8 @@ def test_k1_kernel_equals_plain(card, W, P, S, values):
     got = kernels.member_ss_counts(la, fd, member)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"member_ss_counts": 1,
-                                      "strongly_see": 0}
+                                      "strongly_see": 0,
+                                      "ecdsa_shamir": 0, "field_ops": 0}
     assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
     cpu = kernels.member_ss_counts(*(torch.from_numpy(a) for a in arrays))
     assert torch.equal(got.cpu(), cpu)
@@ -173,7 +181,8 @@ def test_sweep_on_card_equals_cpu(card):
     kernels.reset_launch_counts()
     got = voting.launch_sweep(win, card).cpu()
     assert kernels.launch_counts() == {"member_ss_counts": 1,
-                                      "strongly_see": 0}
+                                      "strongly_see": 0,
+                                      "ecdsa_shamir": 0, "field_ops": 0}
     assert torch.equal(got, voting.launch_sweep(win, torch.device("cpu")))
 
 
@@ -342,7 +351,8 @@ def test_k2_kernel_equals_plain(card, shape, values):
     got = kernels.strongly_see(la, fd, sm)
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"member_ss_counts": 0,
-                                      "strongly_see": 1}
+                                      "strongly_see": 1,
+                                      "ecdsa_shamir": 0, "field_ops": 0}
     assert got.dtype == torch.bool
     assert tuple(got.shape) == (*shape[:-1], shape[-2])
     assert torch.equal(got, kernels.strongly_see_plain(la, fd, sm))
@@ -390,7 +400,8 @@ def test_pipeline_on_card_equals_cpu_one_k2_launch_per_run(card):
     for runs in (1, 2):
         got = dag.run_pipeline(snap, return_matrices=True, device=card)
         assert kernels.launch_counts() == {"member_ss_counts": 0,
-                                          "strongly_see": runs}
+                                          "strongly_see": runs,
+                                          "ecdsa_shamir": 0, "field_ops": 0}
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
@@ -478,3 +489,136 @@ def test_profile_hook_on_card(card, monkeypatch):
         svc.shutdown()
         for n in nodes:
             n.shutdown()
+
+
+# -- K3: batched signature verification on the card ---------------------------
+
+
+def _verify_items(B: int):
+    """B signature items: the JAX tests' vectors with the ladder's rare
+    cases, or a seeded batch with every eighth corrupted."""
+    if B == 24:
+        return verify_vectors() + ladder_edge_items()
+    return signature_batch(B, 16, seed=B)
+
+
+@pytest.mark.parametrize("B", [1, 24, 64, 1000])
+def test_k3_equals_plain_and_batch_verify_the_oracle(card, B):
+    """K3 equals its plain version on the card's tensors, bit for bit, and
+    batch_verify on the card equals the Python oracle and the native
+    verifier; each batch_verify launches K3 once."""
+    from babble_tpu_torch.ops import verify
+
+    items = _verify_items(B)
+    inputs = verify._prepare(items, card)
+    kernels.reset_launch_counts()
+    got = verify.shamir(*inputs[1:])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ecdsa_shamir"] == 1
+    assert got.dtype == torch.bool and tuple(got.shape) == (B,)
+    assert torch.equal(got, verify.shamir_plain(*inputs[1:]))
+    verdicts = verify.batch_verify(items, card)
+    assert kernels.launch_counts()["ecdsa_shamir"] == 2
+    oracle = oracle_verdicts(items)
+    assert verdicts.tolist() == oracle
+    assert native_verify_items(items) == oracle
+
+
+def test_k3_field_layer_equals_python_ints(card):
+    """bt_field_ops, on K3's device functions, equals Python integers for
+    mul, sqr, add and sub mod p at the edges (both folds, the final
+    subtract) and on 4096 random pairs: one launch an operation."""
+    kernels.reset_launch_counts()
+    assert check_field_ops(seed=5) == len(field_edge_pairs()) + 4096
+    assert kernels.launch_counts()["field_ops"] == 4
+    assert kernels.launch_counts()["ecdsa_shamir"] == 0
+
+
+def test_k3_launch_count_rises_once_per_batch_verify(card):
+    from babble_tpu_torch.ops import verify
+
+    items = verify_vectors()
+    kernels.reset_launch_counts()
+    for k in (1, 2, 3):
+        verify.batch_verify(items[:k * 5], card)
+        assert kernels.launch_counts()["ecdsa_shamir"] == k
+    assert verify.batch_verify([], card).shape == (0,)
+    assert kernels.launch_counts()["ecdsa_shamir"] == 3
+
+
+def test_k3_refuses_what_it_cannot_take(card):
+    from babble_tpu_torch.ops import verify
+
+    inputs = verify._prepare(verify_vectors()[:4], card)
+    args = list(inputs[1:])
+    with pytest.raises(TypeError, match="int32"):
+        verify.shamir(args[0].long(), *args[1:])
+    with pytest.raises(ValueError, match="several devices"):
+        verify.shamir(args[0].cpu(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.ecdsa_shamir(args[0].t().contiguous().t(), *args[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ecdsa_shamir(*(a.cpu() for a in args))
+
+
+def _signed_events(n: int):
+    from babble_tpu_torch.crypto.keys import generate_key
+
+    events = []
+    for i in range(n):
+        k = generate_key()
+        ev = Event.new([f"tx {i}".encode()], [], [], ["", ""],
+                       k.public_key.bytes(), 0)
+        ev.sign(k)
+        events.append(ev)
+    return events
+
+
+def _verify_core(device):
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.node.validator import Validator
+    from babble_tpu_torch.proxy.proxy import dummy_commit_response
+
+    key = generate_key()
+    peers = PeerSet([Peer("", key.public_key.hex(), "")])
+    return Core(Validator(key, ""), peers, peers, InmemStore(100),
+                dummy_commit_response, accelerated_verify=True,
+                accelerator_device=device)
+
+
+def test_core_verifies_sync_chunks_through_k3(card, monkeypatch):
+    """With BABBLE_DEVICE_VERIFY=1 on the card, a chunk's signatures go
+    through one K3 launch; the corrupted event stays flagged after its
+    single re-check, the others valid."""
+    monkeypatch.setenv("BABBLE_DEVICE_VERIFY", "1")
+    core = _verify_core(str(card))
+    events = _signed_events(5)
+    events[2].signature = events[0].signature
+    kernels.reset_launch_counts()
+    core._batch_prevalidate(events)
+    assert kernels.launch_counts()["ecdsa_shamir"] == 1
+    assert [ev.prevalidated() for ev in events] == [True, True, False, True,
+                                                   True]
+    assert core.ingest_batch_verifies == 1
+    assert core.ingest_fallback_singles == 1
+
+
+class _FailingK3Lib:
+    """A K3 library whose launch reports cudaErrorInvalidConfiguration."""
+
+    def bt_ecdsa_shamir(self, *args):
+        return 9
+
+
+def test_failing_k3_launch_raises_out_of_the_core(card, monkeypatch):
+    """A refused K3 launch raises out of the core's batch verification: the
+    chunk never goes to the host verifier instead."""
+    monkeypatch.setenv("BABBLE_DEVICE_VERIFY", "1")
+    core = _verify_core(str(card))
+    monkeypatch.setattr(kernels, "_lib", _FailingK3Lib())
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="cudaError_t 9"):
+        core._batch_prevalidate(_signed_events(2))
+    assert kernels.launch_counts()["ecdsa_shamir"] == 0
+    assert core.ingest_batch_verifies == 0

@@ -6,8 +6,9 @@ run when the card is asked for.
 - a fresh interpreter imports every port module and finds no ``jax*`` or
   ``babble_tpu.*`` module loaded;
 - without a GPU, ``resolve_device()``, ``TensorConsensus()``,
-  ``run_pipeline()`` and ``batched_pipeline()`` at their defaults raise
-  instead of running on the CPU.
+  ``run_pipeline()``, ``batched_pipeline()`` and ``ops.verify``'s
+  ``batch_verify()`` at their defaults raise instead of running on the
+  CPU.
 
 Both scans walk the whole package, so every module (``ops/dag.py``,
 ``parallel/``, and the node, net, CLI, service and sim stacks included) is
@@ -129,6 +130,22 @@ def test_dag_pipeline_default_device_raises_without_gpu(monkeypatch):
         batched_pipeline(3, 8)
     assert {"babble_tpu_torch.ops.dag", "babble_tpu_torch.parallel",
             "babble_tpu_torch.parallel.pipeline"} <= set(_port_modules())
+
+
+def test_batch_verify_default_device_raises_without_gpu(monkeypatch):
+    from babble_tpu_torch.crypto import secp256k1 as ref
+    from babble_tpu_torch.ops.verify import BatchVerifier, batch_verify
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    items = [((ref.GX, ref.GY), b"\x00" * 32, 1, 1)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        batch_verify(items)
+    bv = BatchVerifier()
+    bv.add(*items[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bv.flush()
+    assert {"babble_tpu_torch.ops.verify",
+            "babble_tpu_torch.ops.limbs"} <= set(_port_modules())
 
 
 def test_explicit_cpu_device():

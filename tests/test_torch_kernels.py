@@ -89,7 +89,8 @@ def test_member_ss_counts_cpu_takes_plain_version_without_launch():
     got = kernels.member_ss_counts(la, fd, member)
     assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
     assert kernels.launch_counts() == {"member_ss_counts": 0,
-                                      "strongly_see": 0}
+                                      "strongly_see": 0,
+                                      "ecdsa_shamir": 0, "field_ops": 0}
 
 
 

@@ -1,6 +1,7 @@
 """The port's node stack on the CPU: in-process nodes over the inmem
 transport, the consensus offload on the host (``accelerator_device="cpu"``,
-K1's plain version), the start-up refusals, and the command line.
+K1's plain version), the start-up refusals (a mesh; device verification
+asked for on the CPU starts on the host verifier), and the command line.
 
 The checks follow tests/test_node.py: every node reaches a target block and
 block bodies are byte-identical across nodes (checkGossip). The card runs
@@ -206,10 +207,12 @@ def test_unported_modes_refuse_to_start(monkeypatch):
                           accelerator_device="cpu", accelerator_mesh=2)
     with pytest.raises(NotImplementedError, match="Queue A item 4"):
         nodes[0].init()
+    # device signature verification is ported: asked for on the CPU, the
+    # node starts and its sync chunks take the host batch verifier
     monkeypatch.setenv("BABBLE_DEVICE_VERIFY", "1")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        make_nodes(1, InmemNetwork(), init=False, accelerator=True,
-                   accelerator_device="cpu")
+    nodes, _ = make_nodes(1, InmemNetwork(), accelerator=True,
+                          accelerator_device="cpu")
+    assert not nodes[0].core._device_verify()
 
 
 def _cli(*args, env=None, timeout=120):
