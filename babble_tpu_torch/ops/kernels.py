@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port, their plain PyTorch versions, and
 the build that turns ``csrc/*.cu`` into one shared library.
 
-Every source has a plain C interface. One ``nvcc`` call compiles them all
-for ``sm_90a`` into one library in the git-ignored ``build/kernels/``
-directory beside the package, on first use; it is loaded with ``ctypes``.
+Every source has a plain C interface. On first use one ``nvcc`` a source,
+all started together, compiles them for ``sm_90a``, and one more links the
+objects into one library in the git-ignored ``build/kernels/`` directory
+beside the package; it is loaded with ``ctypes``.
 The library name carries a hash over every source and header under
 ``csrc/`` and the flags, so an edited source never loads a stale build.
 
@@ -34,7 +35,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
-          "-v", "-shared"]
+          "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -83,12 +84,27 @@ def build() -> str:
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.tmp.{os.getpid()}"
-            proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *_sources()],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc exit {proc.returncode}:\n"
-                                   f"{proc.stderr}")
-            ptxas_report = (proc.stdout + proc.stderr).strip()
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+            try:
+                procs = [subprocess.Popen(
+                    [_nvcc(), *_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                    for obj, src in zip(objs, _sources())]
+                outs = [proc.communicate() for proc in procs]
+                for proc, (_, err) in zip(procs, outs):
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"nvcc exit {proc.returncode}:\n"
+                                           f"{err}")
+                link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", tmp,
+                                       *objs], capture_output=True, text=True)
+                if link.returncode != 0:
+                    raise RuntimeError(f"nvcc link exit {link.returncode}:\n"
+                                       f"{link.stderr}")
+            finally:
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
+            ptxas_report = "\n".join(out + err for out, err in outs).strip()
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.bt_member_ss_counts.argtypes = [ctypes.c_void_p] * 4 + [
@@ -105,13 +121,17 @@ def build() -> str:
             ctypes.c_int, ctypes.c_void_p,
         ]
         lib.bt_ecdsa_shamir.restype = ctypes.c_int
-        lib.bt_field_ops.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_void_p,
-        ]
+        lib.bt_ecdsa_shamir_group.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+        lib.bt_ecdsa_shamir_group.restype = ctypes.c_int
+        lib.bt_field_ops.argtypes = [ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         lib.bt_field_ops.restype = ctypes.c_int
         lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 3
         lib.bt_strongly_see_tile.argtypes = [ctypes.c_int] * 2
-        for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile):
+        lib.bt_ecdsa_group.argtypes = [ctypes.c_int]
+        for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile,
+                   lib.bt_ecdsa_group):
             fn.restype = ctypes.c_int
         _lib = lib
     return so
@@ -360,13 +380,44 @@ def check_ecdsa_inputs(u1, u2, table_x, table_y, table_inf, r, rn,
         raise ValueError(f"K3 inputs on several devices: {devices}")
 
 
+#: K3's group sizes, lanes of a warp a signature: ``ecdsa_group(B)`` picks
+#: one (csrc/ecdsa_verify.cu)
+ECDSA_GROUPS = (1, 4)
+
+
+def _check_group(group: int, B: int) -> None:
+    if group not in ECDSA_GROUPS:
+        raise ValueError(f"group must be one of {ECDSA_GROUPS}, got {group}")
+    if B * group > 2**31 - 1 - 128:
+        raise ValueError(f"batch {B} at group {group} exceeds the grid's "
+                         "int32 lanes")
+
+
+def ecdsa_group(B: int) -> int:
+    """Lanes a signature (one of ECDSA_GROUPS) K3 takes for a batch of B;
+    builds the library if needed."""
+    if _lib is None:
+        build()
+    return _lib.bt_ecdsa_group(B)
+
+
 def ecdsa_shamir(u1, u2, table_x, table_y, table_inf, r, rn,
                  rn_ok) -> torch.Tensor:
     """K3 on CUDA tensors: [B] bool, whether x(u1 G + u2 Q) = r (mod n),
-    for limbs in [0, 2^16). ``ops.verify.shamir`` takes the plain version
-    for CPU tensors; this launches the kernel or raises."""
-    args = (u1, u2, table_x, table_y, table_inf, r, rn, rn_ok)
+    for limbs in [0, 2^16), at ``ecdsa_group(B)`` lanes a signature.
+    ``ops.verify.shamir`` takes the plain version for CPU tensors; this
+    launches the kernel or raises."""
+    return _ecdsa_shamir_at(None, u1, u2, table_x, table_y, table_inf, r, rn,
+                            rn_ok)
+
+
+def _ecdsa_shamir_at(group: Optional[int], *args) -> torch.Tensor:
+    """``ecdsa_shamir`` at ``group`` lanes a signature (one of
+    ECDSA_GROUPS), or at the group the C entry picks where None: the hook
+    by which the card tests and chip_smoke hold each group size against the
+    plain ladder, and time it."""
     check_ecdsa_inputs(*args)
+    u1 = args[0]
     _on_card(u1, "ecdsa_shamir")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("ecdsa_shamir: inputs must be contiguous")
@@ -374,10 +425,14 @@ def ecdsa_shamir(u1, u2, table_x, table_y, table_inf, r, rn,
     out = torch.empty(B, dtype=torch.bool, device=u1.device)
     if B == 0:
         return out
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr(), B]
     with torch.cuda.device(u1.device):
         stream = torch.cuda.current_stream(u1.device).cuda_stream
-        rc = _lib.bt_ecdsa_shamir(*(t.data_ptr() for t in args),
-                                  out.data_ptr(), B, stream)
+        if group is None:  # the C entry picks, and refuses what overflows
+            rc = _lib.bt_ecdsa_shamir(*ptrs, stream)
+        else:
+            _check_group(group, B)
+            rc = _lib.bt_ecdsa_shamir_group(group, *ptrs, stream)
     _check_launch(rc, "ecdsa_shamir")
     with _count_lock:
         ecdsa_shamir.launches += 1
@@ -390,10 +445,12 @@ ecdsa_shamir.launches = 0
 FIELD_OPS = {"mul": 0, "sqr": 1, "add": 2, "sub": 3}
 
 
-def field_ops(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A test entry on K3's device functions: int32 [B, 16] limbs of
+def field_ops(op: str, a: torch.Tensor, b: torch.Tensor,
+              group: int) -> torch.Tensor:
+    """A test entry on K3's cooperative field layer: int32 [B, 16] limbs of
     a * b, a^2, a + b or a - b mod p (``op`` a key of FIELD_OPS; b is read
-    but unused for "sqr"), computed on the card. CUDA tensors only."""
+    but unused for "sqr"), computed on the card by groups of ``group``
+    lanes (one of ECDSA_GROUPS) a pair. CUDA tensors only."""
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError(f"field_ops: limbs must be int32, got {a.dtype}/"
                         f"{b.dtype}")
@@ -404,14 +461,16 @@ def field_ops(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("field_ops: inputs must be contiguous")
     if a.device != b.device:
         raise ValueError("field_ops: a and b must be on one device")
+    _check_group(group, a.shape[0])
     _on_card(a, "field_ops")
     out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _lib.bt_field_ops(FIELD_OPS[op], a.data_ptr(), b.data_ptr(),
-                               out.data_ptr(), a.shape[0], stream)
+        rc = _lib.bt_field_ops(group, FIELD_OPS[op], a.data_ptr(),
+                               b.data_ptr(), out.data_ptr(), a.shape[0],
+                               stream)
     _check_launch(rc, "field_ops")
     with _count_lock:
         field_ops.launches += 1

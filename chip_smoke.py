@@ -67,13 +67,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the batcher as set, no fallback, and time held in the shared slots
    without it; ``/profile?format=torch`` on one of them must hold CUDA
    kernel records;
-10. device signature verification (K3, ``ops/verify.py``): the field layer
-   on the card (``kernels.field_ops``) equal to Python integers at the
-   edges and on 4096 random pairs; 4096 signatures from 64 keys, one in
+10. device signature verification (K3, ``ops/verify.py``): the cooperative
+   field layer on the card (``kernels.field_ops``) at every group size
+   equal to Python integers at the edges, on non-canonical add and sub
+   operands and on 4096 random pairs; 4096 signatures from 64 keys, one in
    eight corrupted (CORRUPTIONS) and three that take the ladder's rare
-   cases, on whose verdicts K3, the plain ladder on the card, the native
-   verifier, the Python oracle and ``batch_verify`` agree; at B = 1 to
-   16384, K3's device ms beside its bound, host ``_prepare`` and end-to-end
+   cases, on whose verdicts K3 (at its group size and at every other), the
+   plain ladder on the card, the native verifier, the Python oracle and
+   ``batch_verify`` agree; at B = 1 to 16384, K3's device ms at its group
+   size and at the other beside its bound and K3's own count of multiplies
+   (``k3_own_ms``), host ``_prepare`` and end-to-end
    ``batch_verify`` µs a signature beside the native verifier's, and the
    first B at which ``batch_verify`` beats it (or "none"); then four port
    Nodes over loopback TCP with ``--accelerator`` to block 3, with the host
@@ -95,7 +98,8 @@ last is the kernels' JSON record; the last line is
 
 runs phase 2's timings only, in each given checkout of the repo in turn
 (each builds its own kernels in a fresh process), and exits: two commits
-compared on one card; K3 (B 64 and 4096) only where every tree has it. ``--nodes-ab`` does the same with phase 8's node
+compared on one card; K3 at every B of VERIFY_TIMED_B (1 to 16384) only
+where every tree has it. ``--nodes-ab`` does the same with phase 8's node
 cluster.
 """
 
@@ -1846,11 +1850,21 @@ H100_SMS = 132
 # 32 x 32-bit partial products, low and high words (the folds' few
 # multiplies by 977 are not counted)
 MULS_PER_FIELD_MUL = 128
+# K3's threads a block (csrc/ecdsa_verify.cu kThreads)
+K3_THREADS = 128
 # field multiplications: a doubling (2M + 5S), a mixed addition (8M + 3S),
 # the final projective check (Z^2, r Z^2, rn Z^2)
 FIELD_MULS_DOUBLE = 7
 FIELD_MULS_ADD = 11
 FIELD_MULS_CHECK = 3
+# the squarings among them
+FIELD_SQRS_DOUBLE = 5
+FIELD_SQRS_ADD = 3
+FIELD_SQRS_CHECK = 1
+# K3's own multiply instructions a field squaring, by group size: one lane
+# forms 36 products (28 cross products, doubled, and 8 squares), four lanes
+# all 64 (csrc/ecdsa_verify.cu sqr_rows, fe_mul_n)
+K3_MULS_PER_SQR = {1: 72, 4: 128}
 
 
 def field_edge_pairs():
@@ -1869,9 +1883,11 @@ def field_edge_pairs():
 
 
 def check_field_ops(seed: int, n_random: int = 4096) -> int:
-    """K3's field layer on the card (``kernels.field_ops``) equal to Python
-    integers for mul, sqr, add and sub mod p at the edges and on
-    ``n_random`` random pairs. Returns the pairs checked."""
+    """K3's cooperative field layer on the card (``kernels.field_ops``) at
+    every group size equal to Python integers for mul, sqr, add and sub mod
+    p at the edges, on non-canonical add and sub operands and on
+    ``n_random`` random pairs; one launch an operation and group size.
+    Returns the pairs checked."""
     from babble_tpu_torch.ops import kernels
     from babble_tpu_torch.ops.limbs import P_INT, ints_to_limbs
 
@@ -1880,17 +1896,55 @@ def check_field_ops(seed: int, n_random: int = 4096) -> int:
                                   for _ in range(n_random)]
     xs, ys = [x for x, _ in pairs], [y for _, y in pairs]
     a, b = ints_to_limbs(xs).cuda(), ints_to_limbs(ys).cuda()
+    loose = noncanonical_pairs()
+    la = ints_to_limbs([x for x, _ in loose]).cuda()
+    lb = ints_to_limbs([y for _, y in loose]).cuda()
     want = {"mul": lambda x, y: x * y % P_INT, "sqr": lambda x, y: x * x % P_INT,
-            "add": lambda x, y: (x + y) % P_INT,
-            "sub": lambda x, y: (x - y) % P_INT}
-    for op, fn in want.items():
-        got = kernels.field_ops(op, a, b).cpu().numpy().astype("<u2")
-        vals = [int.from_bytes(row.tobytes(), "little") for row in got]
-        bad = [i for i, (x, y) in enumerate(pairs) if vals[i] != fn(x, y)]
-        if bad:
-            raise AssertionError(f"K3 field {op}: {len(bad)} of {len(pairs)}"
-                                 f" differ from Python ints, first {bad[:5]}")
-    return len(pairs)
+            "add": add_mod_p_int, "sub": sub_mod_p_int}
+    for group in kernels.ECDSA_GROUPS:
+        for op, fn in want.items():
+            cases = [(pairs, a, b)]
+            if op in ("add", "sub"):
+                cases.append((loose, la, lb))
+            for ps, x_l, y_l in cases:
+                got = kernels.field_ops(op, x_l, y_l, group)
+                vals = [int.from_bytes(row.tobytes(), "little")
+                        for row in got.cpu().numpy().astype("<u2")]
+                bad = [i for i, (x, y) in enumerate(ps) if vals[i] != fn(x, y)]
+                if bad:
+                    raise AssertionError(
+                        f"K3 field {op} at G {group}: {len(bad)} of "
+                        f"{len(ps)} differ from Python ints, first {bad[:5]}")
+    return len(pairs) + len(loose)
+
+
+def add_mod_p_int(x: int, y: int) -> int:
+    """The JAX package's add_mod_p on any 256-bit x and y: s = x + y, then
+    s - p (mod 2^256) where s reaches p, else s."""
+    from babble_tpu_torch.ops.limbs import P_INT
+
+    s = x + y
+    return (s - P_INT) % 2**256 if s >= P_INT else s
+
+
+def sub_mod_p_int(x: int, y: int) -> int:
+    """The JAX package's sub_mod_p: x + ((p - y) mod 2^256)."""
+    from babble_tpu_torch.ops.limbs import P_INT
+
+    return add_mod_p_int(x, (P_INT - y) % 2**256)
+
+
+def noncanonical_pairs():
+    """Add and subtract operands at or above p, up to 2^256 - 1, against
+    each other and the edges below p: their sums and differences differ
+    from a + b and a - b mod p, and K3 must give the JAX package's."""
+    from babble_tpu_torch.ops.limbs import P_INT
+
+    high = [P_INT, P_INT + 1, P_INT + 977, 2**256 - 2**32, 2**256 - 2,
+            2**256 - 1]
+    low = [0, 1, 2**32 + 977, P_INT - 1, 1 << 255]
+    return ([(x, y) for x in high for y in high + low]
+            + [(x, y) for x in low for y in high])
 
 
 def verify_vectors():
@@ -2025,12 +2079,11 @@ def oracle_verdicts(items, workers: int = 8):
         return [v for part in pool.map(_oracle_chunk, chunks) for v in part]
 
 
-def k3_field_muls(inputs) -> int:
-    """Field multiplications K3 does on ``inputs`` (a VerifyInputs): per
-    signature 256 doublings, a mixed addition at every step whose table
-    entry is finite after the first such step (that one lifts the entry),
-    and the final check where the ladder's point is finite. Doublings
-    inside an addition (P1 == P2) are not counted."""
+def _k3_ladder_counts(inputs):
+    """Per signature of ``inputs`` (a VerifyInputs): the mixed additions of
+    K3's ladder, one at every step whose table entry is finite after the
+    first such step (that one lifts the entry), and whether it ends with
+    the final check (the ladder's point finite)."""
     import numpy as np
 
     u1 = inputs.u1.cpu().numpy().astype(np.int64)
@@ -2042,9 +2095,38 @@ def k3_field_muls(inputs) -> int:
     sel = bits1 + 2 * bits2
     finite = (sel != 0) & ~np.take_along_axis(tinf, sel, axis=1)
     n_finite = finite.sum(1)
-    adds = np.maximum(n_finite - 1, 0)
-    return int((256 * FIELD_MULS_DOUBLE + FIELD_MULS_CHECK * (n_finite > 0)
+    return np.maximum(n_finite - 1, 0), n_finite > 0
+
+
+def k3_field_muls(inputs) -> int:
+    """Field multiplications K3 does on ``inputs`` (a VerifyInputs): per
+    signature 256 doublings, the mixed additions and the final check of
+    ``_k3_ladder_counts``. Doublings inside an addition (P1 == P2) are not
+    counted."""
+    adds, checks = _k3_ladder_counts(inputs)
+    return int((256 * FIELD_MULS_DOUBLE + FIELD_MULS_CHECK * checks
                 + FIELD_MULS_ADD * adds).sum())
+
+
+def k3_own_muls(inputs, group: int) -> int:
+    """K3's own count of multiply instructions on ``inputs`` at ``group``
+    lanes a signature: ``k3_field_muls`` x MULS_PER_FIELD_MUL, less what its
+    squarings save (K3_MULS_PER_SQR). The bound (``k3_bound_ms``) keeps
+    the reference ladder's count, so that every form of K3 is read against
+    the same work; this count stands beside it."""
+    adds, checks = _k3_ladder_counts(inputs)
+    sqrs = int((256 * FIELD_SQRS_DOUBLE + FIELD_SQRS_CHECK * checks
+                + FIELD_SQRS_ADD * adds).sum())
+    return (k3_field_muls(inputs) * MULS_PER_FIELD_MUL
+            - sqrs * (MULS_PER_FIELD_MUL - K3_MULS_PER_SQR[group]))
+
+
+def k3_own_ms(inputs, group: int, clock_mhz: float) -> float:
+    """``k3_own_muls`` at 64 a clock on each of 132 SMs at ``clock_mhz``:
+    the operations time of ``k3_bound_ms`` for the multiplies that K3 at
+    ``group`` lanes does (its bytes take far less)."""
+    return (k3_own_muls(inputs, group)
+            / (INT_MULS_PER_CLOCK_SM * H100_SMS * clock_mhz * 1e6) * 1e3)
 
 
 def sm_clock_mhz() -> float:
@@ -2085,14 +2167,18 @@ def k3_against_plain(items, clock_mhz: float) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = int((k3.int() - plain.int()).abs().max())
+    for group in kernels.ECDSA_GROUPS:  # every group size, not only B's
+        got = kernels._ecdsa_shamir_at(group, *inputs[1:])
+        err = max(err, int((got.int() - plain.int()).abs().max()))
     if err:
         raise AssertionError(f"K3 differs from its plain version at B "
-                             f"{len(items)}: {int((k3 != plain).sum())} "
-                             "verdicts")
+                             f"{len(items)} (at its group size or another)")
+    group = kernels.ecdsa_group(len(items))
     return {"B": len(items), "inputs": inputs, "k3": k3, "max_abs_err": err,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "group": group,
             "ms": time_on_device(lambda: kernels.ecdsa_shamir(*inputs[1:])),
-            "bound": k3_bound_ms(inputs, clock_mhz)}
+            "bound": k3_bound_ms(inputs, clock_mhz),
+            "own_ms": k3_own_ms(inputs, group, clock_mhz)}
 
 
 def check_verdicts(items, clock_mhz: float) -> dict:
@@ -2125,10 +2211,12 @@ def check_verdicts(items, clock_mhz: float) -> dict:
 
 def verify_times(items, clock_mhz: float) -> list:
     """At each B of VERIFY_TIMED_B (the first B of ``items``): K3's device ms
-    (CUDA events, median of 30), its bound, host ``_prepare`` µs a
-    signature, end-to-end ``batch_verify`` µs a signature and the native
-    verifier's µs a signature from the same items (host clock, median of
-    3 after one warm-up run)."""
+    (CUDA events, median of 30) at the group size it takes and at the
+    other, its bound and, beside it, the operations time of K3's own
+    multiplies (``k3_own_ms``), host ``_prepare`` µs a signature, end-to-end
+    ``batch_verify`` µs a signature and the native verifier's µs a
+    signature from the same items (host clock, median of 3 after one
+    warm-up run)."""
     import torch
 
     from babble_tpu_torch.ops import kernels, verify
@@ -2139,9 +2227,15 @@ def verify_times(items, clock_mhz: float) -> list:
         part = items[:B]
         inputs = verify._prepare(part, dev)
         ms = time_on_device(lambda: kernels.ecdsa_shamir(*inputs[1:]))
+        by_group = {g: time_on_device(
+            lambda: kernels._ecdsa_shamir_at(g, *inputs[1:]))
+            for g in kernels.ECDSA_GROUPS}
         bound_ms, bound_by = k3_bound_ms(inputs, clock_mhz)
+        group = kernels.ecdsa_group(B)
+        own_ms = k3_own_ms(inputs, group, clock_mhz)
 
         row = {"B": B, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "group": group, "own_ms": own_ms, "ms_by_group": by_group,
                "prepare_us": _wall_ms(lambda: verify._prepare(part, dev), 3)
                / B * 1e3,
                "batch_verify_us": _wall_ms(
@@ -2149,8 +2243,12 @@ def verify_times(items, clock_mhz: float) -> list:
                "native_us": _wall_ms(lambda: native_verify_items(part), 3)
                / B * 1e3}
         rows.append(row)
-        log(f"[verify] B {B}: K3 {ms:.4f} ms, bound {bound_ms:.4g} ms "
-            f"({bound_by}, {bound_ms / ms:.2%} of it); host _prepare "
+        log(f"[verify] B {B}: K3 {ms:.4f} ms at G {row['group']} ("
+            + ", ".join(f"G {g} {t:.4f}" for g, t in by_group.items())
+            + f" ms), bound {bound_ms:.4g} ms "
+            f"({bound_by}, {bound_ms / ms:.2%} of it), K3's own multiplies "
+            f"at G {group} {own_ms:.4g} ms ({own_ms / ms:.2%} of it); host "
+            "_prepare "
             f"{row['prepare_us']:.2f} µs/sig; batch_verify "
             f"{row['batch_verify_us']:.2f} µs/sig; native "
             f"{row['native_us']:.2f} µs/sig")
@@ -2288,16 +2386,25 @@ def k3_row(label: str, rec: dict, launches: int,
         "bound_by": rec["bound"][1],
         "library_ms": None,
         "shape": [rec["B"]],
+        "group": rec["group"],
+        "own_muls_ms": rec["own_ms"],
         "launches_on_path": launches_on_path,
     }
 
 
 def device_verification(seed: int) -> list:
     """Phase 10; returns K3's rows of the kernels line."""
+    from babble_tpu_torch.ops import kernels
+
     t0 = time.perf_counter()
     n_pairs = check_field_ops(seed)
-    log(f"[verify] field layer on the card = Python ints: mul, sqr, add, sub "
-        f"on {n_pairs} pairs ({time.perf_counter() - t0:.1f} s)")
+    log(f"[verify] cooperative field layer on the card = Python ints at G "
+        f"{', '.join(map(str, kernels.ECDSA_GROUPS))}: mul, sqr, add, sub on "
+        f"{n_pairs} pairs (add and sub also on non-canonical operands) "
+        f"({time.perf_counter() - t0:.1f} s); K3 takes G "
+        f"{dict((B, kernels.ecdsa_group(B)) for B in VERIFY_TIMED_B)} "
+        f"lanes a signature by B, {K3_THREADS} threads a block (one warp or "
+        "a few where B G is smaller)")
     clock = sm_clock_mhz()
 
     t0 = time.perf_counter()
@@ -2343,7 +2450,7 @@ import json, sys, torch
 import chip_smoke as c
 from babble_tpu_torch.ops import kernels
 kernels.build()
-k1, k2 = json.loads(sys.argv[1])
+k1, k2, k3_b = json.loads(sys.argv[1])
 k3 = None
 if hasattr(kernels, "ecdsa_shamir"):
     import hashlib
@@ -2355,8 +2462,8 @@ if hasattr(kernels, "ecdsa_shamir"):
         items.append((ref.pubkey_from_scalar(i + 2), h,
                       *ref.sign(i + 2, h)))
     k3 = {}
-    for B in (64, 4096):
-        inp = verify._prepare(items * (B // 64), "cuda")
+    for B in k3_b:
+        inp = verify._prepare((items * (B // 64 + 1))[:B], "cuda")
         k3[B] = c.time_on_device(lambda: kernels.ecdsa_shamir(*inp[1:]))
 print("AB " + json.dumps({
     "floor_ms": c.time_on_device(lambda: torch.cuda._sleep(0)),
@@ -2368,15 +2475,16 @@ print("AB " + json.dumps({
 
 
 def kernel_ab(trees) -> None:
-    """Phase 2's kernel times in each tree of ``trees`` (checkouts of this
-    repo, each with its own build), one fresh process per tree, in the
+    """Phase 2's kernel times, and K3's at every B of VERIFY_TIMED_B, in
+    each tree of ``trees`` (checkouts of this repo, each with its own
+    build), one fresh process per tree, in the
     order given (old, new, new, old compares two commits on one card);
     prints one line per tree and shape, and a table of the per-tree
     medians."""
     import os
     import subprocess
 
-    shapes = json.dumps([K1_SHAPES, K2_SHAPES])
+    shapes = json.dumps([K1_SHAPES, K2_SHAPES, VERIFY_TIMED_B])
     runs = []
     for tree in trees:
         proc = subprocess.run([sys.executable, "-c", _AB_CHILD, shapes],
@@ -2402,7 +2510,7 @@ def kernel_ab(trees) -> None:
                 f" ms of {[round(m, 5) for m in ms]}")
     if all(rec.get("k3") for _, rec in runs):
         for tree, recs in by_tree.items():
-            for B in ("64", "4096"):
+            for B in map(str, VERIFY_TIMED_B):
                 ms = [r["k3"][B] for r in recs]
                 log(f"[ab] {tree} K3 B {B}: median "
                     f"{statistics.median(ms):.5f} ms of "
@@ -2451,8 +2559,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--ab", nargs="+", metavar="TREE",
-                    help="only time phase 2's kernels in each of these "
-                    "checkouts in turn (e.g. old new new old) and exit")
+                    help="only time phase 2's kernels and K3 in each of "
+                    "these checkouts in turn (e.g. old new new old) and "
+                    "exit")
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")

@@ -37,6 +37,7 @@ from chip_smoke import (
     k1_edge_inputs,
     ladder_edge_items,
     native_verify_items,
+    noncanonical_pairs,
     oracle_verdicts,
     signature_batch,
     tcp_cluster,
@@ -525,13 +526,59 @@ def test_k3_equals_plain_and_batch_verify_the_oracle(card, B):
 
 
 def test_k3_field_layer_equals_python_ints(card):
-    """bt_field_ops, on K3's device functions, equals Python integers for
-    mul, sqr, add and sub mod p at the edges (both folds, the final
-    subtract) and on 4096 random pairs: one launch an operation."""
+    """bt_field_ops, on K3's cooperative field layer, equals Python integers
+    at every group size for mul, sqr, add and sub mod p at the edges (both
+    folds, the final subtract), on non-canonical add and sub operands and
+    on 4096 random pairs: one launch an operation, operand set and group
+    size."""
     kernels.reset_launch_counts()
-    assert check_field_ops(seed=5) == len(field_edge_pairs()) + 4096
-    assert kernels.launch_counts()["field_ops"] == 4
+    assert check_field_ops(seed=5) == (len(field_edge_pairs()) + 4096
+                                       + len(noncanonical_pairs()))
+    assert kernels.launch_counts()["field_ops"] == 6 * len(kernels.ECDSA_GROUPS)
     assert kernels.launch_counts()["ecdsa_shamir"] == 0
+
+
+def _k3_at_every_group(items, card):
+    """K3 at its own group size and at every other equals its plain version
+    on the card, bit for bit, and its verdicts ANDed with the host's equal
+    the Python oracle."""
+    from babble_tpu_torch.ops import verify
+
+    inputs = verify._prepare(items, card)
+    plain = verify.shamir_plain(*inputs[1:])
+    for group in (None, *kernels.ECDSA_GROUPS):
+        got = kernels._ecdsa_shamir_at(group, *inputs[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), (len(items), group)
+    assert (plain & inputs.pre_ok).cpu().tolist() == oracle_verdicts(items)
+
+
+@pytest.mark.parametrize("B", [1, 3, 33, 127, 1000])
+def test_k3_partial_groups_and_warps(card, B):
+    """Batches that leave a partial warp or block at every group size: the
+    groups past B run the last signature again and store nothing."""
+    _k3_at_every_group(signature_batch(B, 16, seed=100 + B), card)
+
+
+def test_k3_rare_cases_beside_ordinary_signatures(card):
+    """The ladder's rare cases (P1 == P2, P1 == -P2 then a lift, R at
+    infinity) at positions 5, 17 and 30 of 64 signatures: one group of a
+    warp takes a rare case while its warp-mates do not."""
+    items = signature_batch(61, 16, seed=7)
+    for pos, item in zip((5, 17, 30), ladder_edge_items()):
+        items.insert(pos, item)
+    _k3_at_every_group(items, card)
+
+
+def test_k3_host_rejected_slots_in_one_warp(card):
+    """Host-rejected items (r = 0, s = 0, r = n, a key off the curve) take
+    dummy slots beside valid and invalid signatures within one warp."""
+    vec = verify_vectors()
+    rejected = [vec[i] for i in (15, 16, 17, 19)]  # r = 0, r = n, s = 0, off
+    items = signature_batch(12, 8, seed=9)
+    for pos, item in zip((1, 2, 6, 11), rejected):
+        items.insert(pos, item)
+    _k3_at_every_group(items, card)
 
 
 def test_k3_launch_count_rises_once_per_batch_verify(card):
@@ -559,6 +606,11 @@ def test_k3_refuses_what_it_cannot_take(card):
         kernels.ecdsa_shamir(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.ecdsa_shamir(*(a.cpu() for a in args))
+    for group in (2, 3, 8):
+        with pytest.raises(ValueError, match="group"):
+            kernels._ecdsa_shamir_at(group, *args)
+    with pytest.raises(ValueError, match="group"):
+        kernels.field_ops("mul", args[0], args[1], 16)
 
 
 def _signed_events(n: int):
