@@ -105,12 +105,13 @@ struct Ring {
   float weight[Tile<B>::kStages][NS][kChunk];
 };
 
-// The tile side for an [n, n] output in `groups` grid layers: the 128 tile
-// where it still gives two blocks per SM, else the 32 tile, so that small
-// outputs spread over the SMs.
-inline int tile_side(int n, int groups) {
-  const long long t = (n + 127) / 128;
-  return t * t * groups >= 2 * kSMs ? 128 : 32;
+// The tile side for a [rows, cols] output in `groups` grid layers: the 128
+// tile where it still gives two blocks per SM, else the 32 tile, so that
+// small outputs spread over the SMs.
+inline int tile_side(int rows, int cols, int groups) {
+  const long long t = static_cast<long long>((rows + 127) / 128) *
+                      ((cols + 127) / 128);
+  return t * groups >= 2 * kSMs ? 128 : 32;
 }
 
 __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
@@ -193,13 +194,16 @@ __device__ __forceinline__ void ge_add(float& acc0, float& acc1, int32_t a,
 // The counters of this thread's TM x TN tile of the block tile at rows x0
 // and columns y0: acc[s][i][j] = sum_p w[s, p] * (la[x0 + row(i), p] >=
 // fd[y0 + col(j), p]), with w = 1 when `kWeighted` is false (K2), else
-// w[s, p] = member[s0 + s, p] (K1; 0 for slots at or past S). Every thread
+// w[s, p] = member[s0 + s, p] (K1; 0 for slots at or past S). la has
+// n_la rows and fd n_fd (equal for a square output; the sharded sweep's
+// voter rows against every candidate, and a ring step's column block, are
+// not), each staged with its own sentinel past its own rows. Every thread
 // of the block must call it.
 template <int B, int NS, bool kWeighted>
 __device__ __forceinline__ void count_tile(
     Ring<B, NS>& ring, const int32_t* __restrict__ la,
     const int32_t* __restrict__ fd, const uint8_t* __restrict__ member,
-    int n, int P, int S, int s0, int x0, int y0,
+    int n_la, int n_fd, int P, int S, int s0, int x0, int y0,
     float (&acc)[NS][Tile<B>::kTM][Tile<B>::kTN]) {
   using T = Tile<B>;
   static_assert(NS == 1 || (kWeighted && NS == 2), "one or two slots");
@@ -227,8 +231,8 @@ __device__ __forceinline__ void count_tile(
   };
   auto stage = [&](int c) {
     const int buf = c % T::kStages;
-    stage_chunk<B>(ring.la[buf], la, n, P, x0, c * kChunk, -1);
-    stage_chunk<B>(ring.fd[buf], fd, n, P, y0, c * kChunk, INT_MAX);
+    stage_chunk<B>(ring.la[buf], la, n_la, P, x0, c * kChunk, -1);
+    stage_chunk<B>(ring.fd[buf], fd, n_fd, P, y0, c * kChunk, INT_MAX);
   };
 
   const int chunks = (P + kChunk - 1) / kChunk;

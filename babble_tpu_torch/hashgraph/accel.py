@@ -31,6 +31,15 @@ Two options, resolved as the JAX package resolves them:
   ``SweepBatcher``, which sweeps every co-located node's window of a flush
   wave in one batched sweep; a flush polls its ticket.
 
+A ``mesh`` (``parallel/mesh.Mesh``) splits each sweep's witness axis over
+its shards (``parallel/voting_shard.py``): a window whose W the mesh size
+does not divide is padded to it (``mesh_pad_rows``); only a mesh with an odd
+factor, which no power-of-two bucket divides, sends the window to the
+single-device sweep, counted in ``mesh_fallbacks``. Resident windows keep
+per-shard buffers; with the batcher, windows ride its coprocessor lane,
+shared by every validator on the same mesh. The shard devices must be of
+the offload device's type.
+
 Admission control (without the batcher): co-located nodes (threads of one
 process, or processes sharing ``BABBLE_ACCEL_SLOT_DIR``) share one card,
 and at most ``_MAX_INFLIGHT`` pipelined sweeps are in flight on it at once.
@@ -67,6 +76,8 @@ from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
 from babble_tpu_torch.ops import kernels, voting, window_state
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
 from babble_tpu_torch.ops.window_state import StaleWindowError, WindowState
+from babble_tpu_torch.parallel import voting_shard
+from babble_tpu_torch.parallel.mesh import aligned_width, check_device_type
 
 logger = logging.getLogger("babble_tpu_torch.hashgraph.accel")
 
@@ -257,11 +268,6 @@ class TensorConsensus:
                  resident: bool | None = None,
                  clock=None,
                  owner: str | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TensorConsensus(mesh=...) is not ported yet; see the "
-                "port's queue in ROADMAP.md"
-            )
         self.device = resolve_device(device)
         self.owner = owner
         self._perf = (clock.perf_counter if clock is not None
@@ -310,6 +316,8 @@ class TensorConsensus:
             resident = os.environ.get("BABBLE_ACCEL_RESIDENT") != "0"
         self.resident = resident
         self.window_state = WindowState() if resident else None
+        self._mesh = None
+        self.mesh = mesh
         if resident:
             window_state.script_programs()
         # A store eviction falls back to the oracle for its flush; repeated
@@ -328,9 +336,11 @@ class TensorConsensus:
         self.rows_delta_total = 0  # window rows packed from the store
         self.rows_reused_total = 0  # window rows kept from the last sweep
         self.delta_sweeps = 0  # sweeps that uploaded only the delta
-        # The node telemetry reads these under the JAX package's names:
-        # the port compiles nothing while it runs, and has no mesh lane.
+        # The node telemetry reads this under the JAX package's name: the
+        # port compiles nothing while it runs.
         self.compile_waits = 0
+        # Witness rows added to align windows to the mesh, and windows that
+        # still swept on one device (a mesh with an odd factor).
         self.mesh_pad_rows = 0
         self.mesh_fallbacks = 0
         # applied sweeps per window shape bucket (W, E, P, S, R)
@@ -362,6 +372,55 @@ class TensorConsensus:
         # Optional per-sample stage observer, called as obs(stage, seconds).
         self.stage_observer = None
         self._inflight: Optional[_Inflight] = None
+
+    @property
+    def mesh(self):
+        """The device mesh the sweeps are split over, or None."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        """Attach a mesh (or None), as the node does once it knows its
+        devices. Raises ValueError when a shard device is not of the
+        offload device's type. The resident state follows and rebuilds at
+        its next snapshot."""
+        if mesh is not None:
+            check_device_type(mesh, self.device)
+        self._mesh = mesh
+        if self.window_state is not None:
+            self.window_state.mesh = mesh
+            self.window_state.mark_dirty("mesh")
+
+    def _use_mesh(self, win) -> bool:
+        """True when the sweep of ``win`` takes the sharded path: a mesh is
+        attached and its size divides the witness axis. Windows are padded
+        to that (``_mesh_align``) before they get here; one that is not
+        (an odd-factor mesh, counted in mesh_fallbacks) sweeps on one
+        device."""
+        return (self._mesh is not None
+                and win.n_witnesses % self._mesh.size == 0)
+
+    def _mesh_align(self, win):
+        """Pad the witness axis so that the mesh size divides it
+        (``voting.repad_window``: neutral fills, real rows keep their
+        indexes, decisions identical), counting the rows added in
+        mesh_pad_rows. Where no padding can (``mesh.aligned_width``: a mesh
+        with an odd factor), mesh_fallbacks counts one and the window comes
+        back unchanged."""
+        if win.n_witnesses % self._mesh.size == 0:
+            return win
+        key = voting.bucket_key(win)
+        W_m = aligned_width(key[0], self._mesh.size)
+        if W_m is None:
+            self.mesh_fallbacks += 1
+            return win
+        padded = voting.repad_window(win, (W_m,) + key[1:])
+        self.mesh_pad_rows += W_m - key[0]
+        return padded
+
+    def _copro_owner(self) -> str:
+        """This validator's name in the batcher's coprocessor stats."""
+        return self.owner if self.owner else f"tc-{id(self):x}"
 
     def _stage(self, stage: str, seconds: float) -> None:
         self.stage_s[stage] += seconds
@@ -471,6 +530,8 @@ class TensorConsensus:
             t0 = self._perf()
             win = voting.build_voting_window(hg)
             self._stage("build", self._perf() - t0)
+            if win is not None and self._mesh is not None:
+                win = self._mesh_align(win)
             return win, None
         timers: dict = {}
         try:
@@ -483,13 +544,22 @@ class TensorConsensus:
             return None, None
         self.rows_delta_total += snap.rows_delta
         self.rows_reused_total += snap.rows_reused
-        return snap.win, snap
+        win = snap.win
+        if self._mesh is not None:
+            # resident windows are aligned at rebuild (WindowState); this
+            # counts the odd-factor mesh that no alignment reaches
+            win = self._mesh_align(win)
+        return win, snap
 
     def _dispatch(self, win, snap):
         """Enqueue one sweep on the current stream: through the resident
         buffers with a WindowState snapshot, else a full upload. Returns
         the unread output."""
         if snap is None:
+            if self._use_mesh(win):
+                return voting_shard.launch_sharded_sweep(self._mesh, win)
+            if self._mesh is not None:
+                self.mesh_fallbacks += 1
             return voting.launch_sweep(win, self.device)
         out, used_delta = self.window_state.dispatch(snap, self.device)
         self.delta_sweeps += used_delta
@@ -499,7 +569,9 @@ class TensorConsensus:
         """Hand the window to the process-wide batcher. Returns its ticket,
         or None when the batcher is backlogged (``contended``: the oracle
         carries the flush)."""
-        ticket = SweepBatcher.instance().submit(win, device=self.device)
+        ticket = SweepBatcher.instance().submit(
+            win, device=self.device, mesh=self._mesh,
+            owner=self._copro_owner())
         if ticket is None:
             self.contended += 1
             if snap is not None:
@@ -729,6 +801,10 @@ class TensorConsensus:
             "accel_stale_drops": self.stale_drops,
             "accel_min_window": self.min_window,
             "accel_pipeline": self.pipeline,
+            "accel_mesh": ("x".join(map(str, self._mesh.shape))
+                           if self._mesh is not None else None),
+            "accel_mesh_pad_rows": self.mesh_pad_rows,
+            "accel_mesh_fallbacks": self.mesh_fallbacks,
             "accel_last_sweep_ms": round(1000.0 * self.last_sweep_s, 3),
             "accel_avg_sweep_ms": round(avg_ms, 3),
             "accel_last_window_events": self.last_window_events,

@@ -1,7 +1,7 @@
 """SweepBatcher — one device sweep for all co-located nodes' windows.
 
 The PyTorch counterpart of the JAX package's
-``babble_tpu/hashgraph/sweep_batcher.py`` (its single-device lane).
+``babble_tpu/hashgraph/sweep_batcher.py``.
 Multi-validator hosts (the 16-node threaded topology, tests, any
 in-process cluster) run many consensus engines against one card. Without
 the batcher each node enqueues its own sweep of some 530 torch operations,
@@ -29,8 +29,18 @@ copy on a CUDA event (``synchronize()`` releases the GIL) while holding no
 lock, so submissions keep arriving. An error fails every ticket of the
 wave; the owning TensorConsensus decides what it means (a stale window is
 neutral, a store error falls back to the oracle, anything else — a CUDA
-error — raises out of its flush). The mesh lane (the JAX coprocessor mode)
-is not ported: a mesh submission raises NotImplementedError.
+error — raises out of its flush).
+
+The coprocessor lane: a window submitted with a ``mesh``
+(``parallel/mesh.Mesh``) rides one lane per mesh, shared by every
+co-located validator on it (``owner`` names the validator). Its wave pads
+every window to the wave's elementwise-max bucket with W aligned to the
+mesh size, launches every window's sharded sweep
+(``parallel/voting_shard.py``), then reads every output, and slices each
+back to its own row spaces. The JAX package pads a mesh wave to a per-mesh
+target that only grows, to stay on one compiled program; the port
+compiles nothing, so each wave pays for its own bucket only, as the
+single-device lane does.
 
 Enabled per node by ``BABBLE_ACCEL_BATCH=1``, or by default on a card
 (TensorConsensus resolves it). The batcher is in-process by design;
@@ -50,6 +60,8 @@ import torch
 from babble_tpu_torch.ops import voting
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
 from babble_tpu_torch.ops.window_state import StaleWindowError
+from babble_tpu_torch.parallel import voting_shard
+from babble_tpu_torch.parallel.mesh import aligned_width, check_device_type
 
 logger = logging.getLogger("babble_tpu_torch.hashgraph.sweep_batcher")
 
@@ -59,11 +71,17 @@ class Ticket:
     error. ``done`` is set exactly once."""
 
     __slots__ = ("win", "device", "result", "error", "done", "batch_size",
-                 "device_s")
+                 "device_s", "mesh", "owner")
 
-    def __init__(self, win, device: torch.device):
+    def __init__(self, win, device: torch.device, mesh=None,
+                 owner: Optional[str] = None):
         self.win = win
         self.device = device
+        # the coprocessor lane: a mesh routes the window to the sharded
+        # sweep shared by every validator on that mesh; owner names the
+        # submitting validator (copro_validators)
+        self.mesh = mesh
+        self.owner = owner
         self.result = None  # (fame, rr) numpy arrays
         self.error: Optional[BaseException] = None
         self.done = threading.Event()
@@ -112,6 +130,12 @@ class SweepBatcher:
         self.dispatch_s = 0.0
         self.dispatch_cpu_s = 0.0
         self.readback_s = 0.0
+        # the coprocessor lane: mesh waves, windows served through them, and
+        # the validators seen on any mesh
+        self.copro_waves = 0
+        self.copro_windows = 0
+        self.copro_max_seen = 0  # most windows one mesh wave served
+        self._owners: set = set()
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name="sweep-batcher"
         )
@@ -124,23 +148,21 @@ class SweepBatcher:
                 cls._instance = cls()
             return cls._instance
 
-    def submit(self, win, device: DeviceLike = None,
-               mesh=None) -> Optional[Ticket]:
+    def submit(self, win, device: DeviceLike = None, mesh=None,
+               owner: Optional[str] = None) -> Optional[Ticket]:
         """Queue a window for the next coalesced sweep on ``device`` (the
-        card by default), or return None when the batcher is backlogged —
-        the caller must run its oracle, as when it loses an admission
-        slot."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SweepBatcher: the mesh lane is not ported yet; see the "
-                "port's queue in ROADMAP.md"
-            )
+        card by default), or, with a ``mesh``, on the mesh's coprocessor
+        lane, whose shard devices must be of ``device``'s type (ValueError
+        otherwise). Returns None when the batcher is backlogged — the
+        caller must run its oracle, as when it loses an admission slot."""
         dev = resolve_device(device)
+        if mesh is not None:
+            check_device_type(mesh, dev)
         with self._lock:
             if len(self._pending) >= self.MAX_QUEUE:
                 self.refused += 1
                 return None
-            t = Ticket(win, dev)
+            t = Ticket(win, dev, mesh=mesh, owner=owner)
             self._pending.append(t)
         self._work.set()
         return t
@@ -160,10 +182,12 @@ class SweepBatcher:
             "batch_dispatch_ms": round(1000.0 * self.dispatch_s, 1),
             "batch_dispatch_cpu_ms": round(1000.0 * self.dispatch_cpu_s, 1),
             "batch_readback_ms": round(1000.0 * self.readback_s, 1),
-            # the coprocessor (mesh) lane is not ported: no mesh waves
-            "copro_waves": 0,
-            "copro_windows": 0,
-            "copro_validators": 0,
+            # the coprocessor lane: mesh waves, windows multiplexed through
+            # them, and distinct validators sharing the mesh(es)
+            "copro_waves": self.copro_waves,
+            "copro_windows": self.copro_windows,
+            "copro_validators": len(self._owners),
+            "copro_max": self.copro_max_seen,
         }
 
     # -- dispatcher ----------------------------------------------------------
@@ -194,14 +218,25 @@ class SweepBatcher:
                         self._dispatching = False
 
     def _dispatch(self, tickets: List[Ticket]) -> None:
-        """Split the wave into one lane per device, and a lane into groups
-        of at most MAX_BATCH windows."""
-        lanes: Dict[torch.device, List[Ticket]] = {}
+        """Split the wave into lanes, one per mesh (the coprocessor lanes)
+        and one per device, and a lane into groups of at most MAX_BATCH
+        windows. Lanes never mix windows."""
+        lanes: Dict[tuple, List[Ticket]] = {}
+        meshes: Dict[tuple, object] = {}
         for t in tickets:
-            lanes.setdefault(t.device, []).append(t)
-        for device, lane in lanes.items():
+            if t.mesh is not None:
+                key = ("mesh", t.mesh.key())
+                meshes[key] = t.mesh
+            else:
+                key = ("device", t.device)
+            lanes.setdefault(key, []).append(t)
+        for key, lane in lanes.items():
             for i in range(0, len(lane), self.MAX_BATCH):
-                self._dispatch_group(device, lane[i:i + self.MAX_BATCH])
+                group = lane[i:i + self.MAX_BATCH]
+                if key in meshes:
+                    self._dispatch_mesh_group(meshes[key], group)
+                else:
+                    self._dispatch_group(key[1], group)
 
     def _gate_stale(self, group: List[Ticket]) -> List[Ticket]:
         # Resident-state generation gate: windows snapshotted from a
@@ -222,6 +257,78 @@ class SweepBatcher:
                 continue
             fresh.append(t)
         return fresh
+
+    def _dispatch_mesh_group(self, mesh, group: List[Ticket]) -> None:
+        """A coprocessor wave: after the stale gate, every window pads to
+        the wave's elementwise-max bucket with W grown until the mesh size
+        divides it, every window's sharded sweep is launched, then every
+        output is read (one wait for the wave), each sliced back to its own
+        window's row spaces (real rows keep their indexes under the
+        repad). A window whose launch fails fails alone; a failed wait
+        fails the wave."""
+        group = self._gate_stale(group)
+        if not group:
+            return
+        for t in group:
+            if t.owner is not None:
+                self._owners.add(t.owner)
+        keys = [voting.bucket_key(t.win) for t in group]
+        wave = tuple(max(k[d] for k in keys) for d in range(5))
+        # no aligned width (a mesh with an odd factor): each launch below
+        # fails its ticket
+        wave = (aligned_width(wave[0], mesh.size) or wave[0],) + wave[1:]
+        first = mesh.flat()[0]
+        on_card = first.type == "cuda"
+        t0, c0 = time.perf_counter(), time.thread_time()
+        if on_card:
+            stream = torch.cuda.current_stream(first)
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        launched = []
+        for t in group:
+            try:
+                padded = voting.repad_window(t.win, wave)
+                out = voting_shard.launch_sharded_sweep(mesh, padded)
+                if on_card:
+                    host = torch.empty(out.shape, dtype=out.dtype,
+                                       pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    out = host
+                launched.append((t, padded, out))
+            except BaseException as err:
+                t.error = err
+                t.done.set()
+        t1 = time.perf_counter()
+        self.dispatch_s += t1 - t0
+        self.dispatch_cpu_s += time.thread_time() - c0
+        device_s = t1 - t0
+        if on_card:
+            done.record(stream)
+            try:
+                done.synchronize()
+            except BaseException as err:
+                for t, _padded, _out in launched:
+                    t.error = err
+                    t.done.set()
+                return
+            self.readback_s += time.perf_counter() - t1
+            device_s = start.elapsed_time(done) / 1000.0
+        for t, padded, out in launched:
+            host = out.numpy()
+            t.result = (
+                host[:t.win.n_witnesses],
+                host[padded.n_witnesses:padded.n_witnesses + t.win.n_events],
+            )
+            t.batch_size = len(launched)
+            t.device_s = device_s
+            t.done.set()
+        if launched:
+            self.copro_waves += 1
+            self.copro_windows += len(launched)
+            self.windows += len(launched)
+            self.max_batch_seen = max(self.max_batch_seen, len(launched))
+            self.copro_max_seen = max(self.copro_max_seen, len(launched))
 
     def _dispatch_group(self, device: torch.device,
                         group: List[Ticket]) -> None:

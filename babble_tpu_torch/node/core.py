@@ -178,7 +178,7 @@ class Core:
             # round-received come off the device in batched sweeps
             # (reference hot loop: hashgraph.go:644-668), on the device
             # the caller names (the card by default; no card raises here).
-            # Node.init refuses a multi-device mesh.
+            # Node.init attaches a multi-device mesh (--accelerator-mesh).
             from ..hashgraph.accel import TensorConsensus
 
             self.accelerator_mesh = accelerator_mesh

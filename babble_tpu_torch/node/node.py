@@ -295,6 +295,35 @@ class Node(StateManager):
 
     # -- lifecycle ----------------------------------------------------------
 
+    def _attach_mesh(self) -> None:
+        """Split the offload's sweeps over ``--accelerator-mesh`` cards
+        (babble_tpu/node/node.py:314-340): the process's first n CUDA
+        devices. A size that is not a power of two, which no power-of-two
+        witness bucket divides, an offload on the CPU, or more cards than
+        there are, logs a warning and the sweeps run on one device."""
+        n = self.conf.accelerator_mesh
+        accel = self.core.hg.accel
+        if n <= 1 or accel is None:
+            return
+        if n & (n - 1):
+            self.logger.warning(
+                "--accelerator-mesh %d is not a power of two; no witness "
+                "bucket would ever shard over it — running single-device", n)
+            return
+        if accel.device.type != "cuda":
+            self.logger.warning(
+                "--accelerator-mesh %d unavailable on a %s offload; sweeps "
+                "run single-device", n, accel.device.type)
+            return
+        from babble_tpu_torch.parallel.mesh import consensus_mesh
+
+        try:
+            accel.mesh = consensus_mesh(n)
+        except ValueError:
+            self.logger.warning(
+                "--accelerator-mesh %d unavailable (fewer cards); sweeps "
+                "run single-device", n, exc_info=True)
+
     def init(self) -> None:
         """Pick the initial state (reference: node.go:128-164)."""
         if self.conf.accelerator:
@@ -303,12 +332,7 @@ class Node(StateManager):
             # config names the CPU, and no card raised there, with no CPU
             # fallback. Nothing compiles while the node runs, so the
             # offload needs no prewarm.
-            if self.conf.accelerator_mesh > 1:
-                raise NotImplementedError(
-                    f"--accelerator-mesh {self.conf.accelerator_mesh}: "
-                    "multi-device sweeps are not ported yet (ROADMAP.md, "
-                    "Queue A item 4)"
-                )
+            self._attach_mesh()
             if self.core._device_verify():
                 # Device signature verification is opt-in; when asked for
                 # on a card, build its kernel and verify one signature

@@ -377,11 +377,15 @@ def decide_round_received(rounds: torch.Tensor, witness: torch.Tensor,
 
 
 def batched_core(creator, index, sp, op, la, fd, mid, sm: int,
-                 round_bound: int, stats: Optional[Stats] = None):
+                 round_bound: int, stats: Optional[Stats] = None,
+                 ss_fn=None):
     """The whole consensus sweep over a batch of windows: inputs [B, E]
     (la, fd [B, E, P]) on one device. Returns (see [B, E, E], ss [B, E, E],
     packed [B, 5, E]) where packed stacks (rounds, witness, lamport, fame,
     round_received) as int32, so one copy carries every per-event result.
+    ``ss_fn``, when given, computes the strongly-see matrix in place of
+    ``strongly_see_matrix`` (same arguments, same result): the sharded
+    pipeline's row split over its shards (parallel/pipeline.py).
 
     The fame and round-received loops run rounds 1..min(round_bound,
     max(rounds)); the rounds after those are no-ops in the reference.
@@ -389,7 +393,7 @@ def batched_core(creator, index, sp, op, la, fd, mid, sm: int,
     and ``lamport_passes`` (fixpoint passes made), ``round_loop`` (rounds
     the fame and round-received loops ran) and ``round_bound``."""
     see = see_matrix(creator, index, la)
-    ss = strongly_see_matrix(la, fd, sm)
+    ss = (strongly_see_matrix if ss_fn is None else ss_fn)(la, fd, sm)
     rounds, wit = compute_rounds(creator, sp, op, ss, sm, stats=stats)
     lamport = compute_lamport(sp, op, stats=stats)
     top = int(rounds.max()) if rounds.numel() else 0

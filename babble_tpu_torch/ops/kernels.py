@@ -108,15 +108,16 @@ def build() -> str:
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.bt_member_ss_counts.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.bt_member_ss_counts.restype = ctypes.c_int
         lib.bt_strongly_see.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         lib.bt_strongly_see.restype = ctypes.c_int
+        lib.bt_strongly_see_block.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.bt_strongly_see_block.restype = ctypes.c_int
         lib.bt_ecdsa_shamir.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int, ctypes.c_void_p,
         ]
@@ -127,11 +128,12 @@ def build() -> str:
         lib.bt_field_ops.argtypes = [ctypes.c_int, ctypes.c_int] + [
             ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         lib.bt_field_ops.restype = ctypes.c_int
-        lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 3
+        lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 4
         lib.bt_strongly_see_tile.argtypes = [ctypes.c_int] * 2
+        lib.bt_strongly_see_block_tile.argtypes = [ctypes.c_int] * 3
         lib.bt_ecdsa_group.argtypes = [ctypes.c_int]
         for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile,
-                   lib.bt_ecdsa_group):
+                   lib.bt_strongly_see_block_tile, lib.bt_ecdsa_group):
             fn.restype = ctypes.c_int
         _lib = lib
     return so
@@ -155,23 +157,33 @@ def member_ss_counts_plain(la: torch.Tensor, fd: torch.Tensor,
                            member: torch.Tensor) -> torch.Tensor:
     """counts[..., s, v, w] = sum_p member[..., s, p] * (la[..., v, p] >=
     fd[..., w, p]), as a broadcast compare masked by membership and summed
-    over p — no integer matmul, which CUDA does not have. [W, P] inputs
-    give [S, W, W]; a leading batch axis [B, W, P] gives [B, S, W, W]."""
+    over p — no integer matmul, which CUDA does not have. la [V, P] and fd
+    [W, P] give [S, V, W]; a leading batch axis ([B, V, P], [B, W, P])
+    gives [B, S, V, W]."""
     ge = la[..., :, None, :] >= fd[..., None, :, :]  # [..., V, W, P]
     return (ge[..., None, :, :, :] & member[..., :, None, None, :]).sum(
         -1, dtype=torch.int32)
 
 
-def _check_member_ss(la, fd, member) -> None:
+def _check_coords(la, fd, rows: str) -> None:
+    """Raise unless la and fd are int32 coordinates [n, P] and [m, P] (or
+    [B, n, P] and [B, m, P]); ``rows`` names n and m in the message."""
     if la.dtype != torch.int32 or fd.dtype != torch.int32:
         raise TypeError(f"la/fd must be int32, got {la.dtype}/{fd.dtype}")
+    if (la.dim() not in (2, 3) or fd.dim() != la.dim()
+            or fd.shape[-1] != la.shape[-1]
+            or fd.shape[:-2] != la.shape[:-2]):
+        n, m = rows
+        raise ValueError(
+            f"la and fd must be [{n}, P] and [{m}, P], or [B, {n}, P] and "
+            f"[B, {m}, P], got {tuple(la.shape)} and {tuple(fd.shape)}"
+        )
+
+
+def _check_member_ss(la, fd, member) -> None:
+    _check_coords(la, fd, "VW")
     if member.dtype != torch.bool:
         raise TypeError(f"member must be bool, got {member.dtype}")
-    if la.dim() not in (2, 3) or fd.shape != la.shape:
-        raise ValueError(
-            f"la and fd must both be [W, P] or [B, W, P], got "
-            f"{tuple(la.shape)} and {tuple(fd.shape)}"
-        )
     if (member.dim() != la.dim() or member.shape[-1] != la.shape[-1]
             or member.shape[:-2] != la.shape[:-2]):
         want = "[S, P]" if la.dim() == 2 else f"[B={la.shape[0]}, S, P]"
@@ -185,10 +197,13 @@ def _check_member_ss(la, fd, member) -> None:
 
 def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
                      member: torch.Tensor) -> torch.Tensor:
-    """K1. int32 [S, W, W] strongly-see counts per peer-set slot from
-    [W, P] coordinates, or [B, S, W, W] from a batch of windows ([B, W, P]
+    """K1. int32 [S, V, W] strongly-see counts per peer-set slot from la
+    [V, P] against fd [W, P] (the live sweep's V = W; a shard of the
+    sharded sweep its own V voter rows against all W candidates), or
+    [B, S, V, W] from a batch of windows ([B, V, P] and [B, W, P]
     coordinates, [B, S, P] membership) in one launch. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    plain version; CUDA tensors launch the kernel, on the current stream of
+    their device.
 
     Both compute the product by ``member`` exactly for every int32 value.
     The JAX package's Pallas kernel folds membership into fd as INT32_MAX
@@ -202,7 +217,8 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
     if not (la.is_contiguous() and fd.is_contiguous()
             and member.is_contiguous()):
         raise ValueError("member_ss_counts: inputs must be contiguous")
-    *batch, W, P = la.shape
+    *batch, V, P = la.shape
+    W = fd.shape[-2]
     B = batch[0] if batch else 1
     S = member.shape[-2]
     if P > MEMBER_SS_MAX_P:
@@ -211,12 +227,12 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
             "peer axis the kernel's float32 counters hold exactly"
         )
     groups = S // 2 if S % 2 == 0 else S  # slot groups a window
-    if B * groups > 65535 or B * W > 2**31 - 1:
+    if B * groups > 65535 or B * max(V, W) > 2**31 - 1:
         raise ValueError(f"member_ss_counts: batch {B} of {S} slots and "
-                         f"{W} voters exceeds the grid's 65535 layers or "
-                         "int32 rows")
-    out = torch.empty((*batch, S, W, W), dtype=torch.int32, device=la.device)
-    if W == 0 or S == 0 or B == 0:
+                         f"{max(V, W)} rows exceeds the grid's 65535 layers "
+                         "or int32 rows")
+    out = torch.empty((*batch, S, V, W), dtype=torch.int32, device=la.device)
+    if V == 0 or W == 0 or S == 0 or B == 0:
         return out
     if _lib is None:
         build()
@@ -224,7 +240,7 @@ def member_ss_counts(la: torch.Tensor, fd: torch.Tensor,
         stream = torch.cuda.current_stream(la.device).cuda_stream
         rc = _lib.bt_member_ss_counts(
             la.data_ptr(), fd.data_ptr(), member.data_ptr(), out.data_ptr(),
-            B, W, P, S, stream,
+            B, V, W, P, S, stream,
         )
     _check_launch(rc, "member_ss_counts")
     with _count_lock:
@@ -326,12 +342,112 @@ def strongly_see(la: torch.Tensor, fd: torch.Tensor,
 strongly_see.launches = 0
 
 
-def member_ss_tile(W: int, S: int, B: int = 1) -> int:
-    """Side of the output tile (32 or 128) K1 takes for B windows at
-    (W, S); builds the library if needed."""
+def _check_block(la, fd, out, col0: int) -> tuple:
+    """Raise unless K2's block form can take these: int32 la [X, P] and fd
+    [Y, P] (or [B, X, P] and [B, Y, P]) on one device, and ``out`` None or
+    a bool [X, ldo] (or [B, X, ldo]) there with 0 <= col0 and col0 + Y <=
+    ldo. Returns (X, Y, ldo)."""
+    _check_coords(la, fd, "XY")
+    if la.device != fd.device:
+        raise ValueError("la and fd must be on one device")
+    X, Y = la.shape[-2], fd.shape[-2]
+    if out is None:
+        if col0 != 0:
+            raise ValueError("a column offset needs an output to write into")
+        return X, Y, Y
+    if out.dtype != torch.bool:
+        raise TypeError(f"out must be bool, got {out.dtype}")
+    if (out.dim() != la.dim() or out.shape[:-2] != la.shape[:-2]
+            or out.shape[-2] != X):
+        raise ValueError(f"out must be [..., X={X}, ldo] over la's batch, "
+                         f"got {tuple(out.shape)}")
+    ldo = out.shape[-1]
+    if col0 < 0 or col0 + Y > ldo:
+        raise ValueError(f"columns {col0}..{col0 + Y} do not fit a row of "
+                         f"{ldo}")
+    if out.device != la.device:
+        raise ValueError("out must be on la's device")
+    return X, Y, ldo
+
+
+def strongly_see_block_plain(la: torch.Tensor, fd: torch.Tensor,
+                             super_majority: int,
+                             out: Optional[torch.Tensor] = None,
+                             col0: int = 0) -> torch.Tensor:
+    """K2's block form as plain PyTorch: ``strongly_see_plain`` of la's
+    rows against fd's, written into columns col0 .. col0 + Y of ``out``
+    (a new [..., X, Y] tensor where None). Returns ``out``."""
+    X, Y, ldo = _check_block(la, fd, out, col0)
+    block = strongly_see_plain(la, fd, int(super_majority))
+    if out is None:
+        return block
+    out[..., col0:col0 + Y] = block
+    return out
+
+
+def strongly_see_block(la: torch.Tensor, fd: torch.Tensor,
+                       super_majority: int,
+                       out: Optional[torch.Tensor] = None,
+                       col0: int = 0) -> torch.Tensor:
+    """K2's block form: SS[..., x, col0 + y] = #{p : la[..., x, p] >=
+    fd[..., y, p]} >= sm for la [X, P] against fd [Y, P] (or a batch
+    [B, X, P], [B, Y, P]), written into columns col0 .. col0 + Y of the
+    bool ``out`` ([..., X, ldo], contiguous; a new [..., X, Y] tensor where
+    None), so that one ring step fills its column block in place. Returns
+    ``out``. CPU tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream of their device. ``strongly_see`` is the
+    square form."""
+    X, Y, ldo = _check_block(la, fd, out, col0)
+    sm = int(super_majority)
+    if la.device.type == "cpu":
+        return strongly_see_block_plain(la, fd, sm, out, col0)
+    if la.device.type != "cuda":
+        raise ValueError(f"strongly_see_block: unsupported device "
+                         f"{la.device}")
+    if out is None:
+        out = torch.empty((*la.shape[:-1], Y), dtype=torch.bool,
+                          device=la.device)
+    if not (la.is_contiguous() and fd.is_contiguous()
+            and out.is_contiguous()):
+        raise ValueError("strongly_see_block: inputs and out must be "
+                         "contiguous")
+    *batch, _, P = la.shape
+    B = batch[0] if batch else 1
+    if P > STRONGLY_SEE_MAX_P:
+        raise ValueError(
+            f"strongly_see_block: P={P} exceeds {STRONGLY_SEE_MAX_P}, the "
+            "largest peer axis the kernel's float32 counters hold exactly"
+        )
+    if B > 65535:
+        raise ValueError(f"strongly_see_block: batch {B} exceeds the grid's "
+                         "65535")
+    if X == 0 or Y == 0 or B == 0:
+        return out
     if _lib is None:
         build()
-    return _lib.bt_member_ss_tile(B, W, S)
+    with torch.cuda.device(la.device):
+        stream = torch.cuda.current_stream(la.device).cuda_stream
+        rc = _lib.bt_strongly_see_block(
+            la.data_ptr(), fd.data_ptr(), out.data_ptr(), B, X, Y, P, sm,
+            ldo, col0, stream,
+        )
+    _check_launch(rc, "strongly_see_block")
+    with _count_lock:
+        strongly_see_block.launches += 1
+    return out
+
+
+strongly_see_block.launches = 0
+
+
+def member_ss_tile(W: int, S: int, B: int = 1,
+                   V: Optional[int] = None) -> int:
+    """Side of the output tile (32 or 128) K1 takes for B windows of V
+    voter rows (W where None) against W candidates and S slots; builds the
+    library if needed."""
+    if _lib is None:
+        build()
+    return _lib.bt_member_ss_tile(B, W if V is None else V, W, S)
 
 
 def strongly_see_tile(E: int, B: int) -> int:
@@ -340,6 +456,14 @@ def strongly_see_tile(E: int, B: int) -> int:
     if _lib is None:
         build()
     return _lib.bt_strongly_see_tile(E, B)
+
+
+def strongly_see_block_tile(X: int, Y: int, B: int = 1) -> int:
+    """Side of the output tile (32 or 128) K2's block form takes for B
+    blocks of X rows against Y columns; builds the library if needed."""
+    if _lib is None:
+        build()
+    return _lib.bt_strongly_see_block_tile(X, Y, B)
 
 
 # =============================================================================
@@ -485,6 +609,7 @@ def reset_launch_counts() -> None:
     with _count_lock:
         member_ss_counts.launches = 0
         strongly_see.launches = 0
+        strongly_see_block.launches = 0
         ecdsa_shamir.launches = 0
         field_ops.launches = 0
 
@@ -493,5 +618,6 @@ def launch_counts() -> Dict[str, int]:
     """Launch count per kernel wrapper."""
     return {"member_ss_counts": member_ss_counts.launches,
             "strongly_see": strongly_see.launches,
+            "strongly_see_block": strongly_see_block.launches,
             "ecdsa_shamir": ecdsa_shamir.launches,
             "field_ops": field_ops.launches}

@@ -159,6 +159,57 @@ WIN_FIELDS = (
 # =============================================================================
 
 
+def _vote_round(ss_prev: torch.Tensor, votes_all: torch.Tensor,
+                votes: torch.Tensor, see_ww: torch.Tensor,
+                mid_y: torch.Tensor, voter: torch.Tensor,
+                valid_x: torch.Tensor, diff: torch.Tensor,
+                sm_j: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round j of the vote recursion (hashgraph.go:928-948) for voter
+    rows y against candidates x, over any leading batch axes (none on a
+    shard of the sharded sweep, parallel/voting_shard.py). Inputs:
+    ``ss_prev`` [.., Y, Z], y strongly sees round j-1's witness z under
+    round j-1's peer-set (zero elsewhere); ``votes_all`` [.., Z, X], every
+    witness's votes so far; ``votes`` [.., Y, X], the voter rows' own;
+    ``see_ww`` [.., Y, X]; ``mid_y`` [.., Y] the voters' coin bits;
+    ``voter`` [.., Y] valid witnesses of round j; ``valid_x`` [.., X];
+    ``diff`` [.., X] j less the candidate's round; ``sm_j`` [..] round j's
+    super-majority. Returns the voter rows' new votes and, per candidate,
+    whether any of these voters decides it and whether any decides it
+    famous."""
+    n_ss = ss_prev.sum(dim=-1, dtype=torch.int32)
+    # exact 0/1 tally: a float32 product of 0/1 matrices is exact below
+    # 2^24 (ops/intdot.py; run_scripted turns TF32 off)
+    yays = torch.matmul(ss_prev.to(torch.float32),
+                        votes_all.to(torch.float32)).to(torch.int32)
+    nays = n_ss.unsqueeze(-1) - yays
+    v = yays >= nays
+    t = torch.maximum(yays, nays)
+    settled = t >= sm_j.unsqueeze(-1).unsqueeze(-1)
+
+    # floor modulo, as jnp's % on negative diff
+    # COIN_ROUND_FREQ (TorchScript takes no global int)
+    is_coin = (torch.remainder(diff, 4) == 0).unsqueeze(-2)
+    derived = torch.where(is_coin & ~settled, mid_y.unsqueeze(-1), v)
+    new_vote = torch.where((diff == 1).unsqueeze(-2), see_ww, derived)
+
+    active = (voter.unsqueeze(-1) & valid_x.unsqueeze(-2)
+              & (diff >= 1).unsqueeze(-2))
+    votes = torch.where(active, new_vote, votes)
+
+    decide_pair = active & ~is_coin & (diff > 1).unsqueeze(-2) & settled
+    return votes, decide_pair.any(dim=-2), (decide_pair & v).any(dim=-2)
+
+
+def _apply_decisions(fame: torch.Tensor, decided_now: torch.Tensor,
+                     decided_val: torch.Tensor) -> torch.Tensor:
+    """Fame after one round: an undecided candidate that some voter
+    decided becomes famous (1) or not (-1)."""
+    newly = decided_now & (fame == 0)
+    return fame.masked_fill(newly & decided_val, 1).masked_fill(
+        newly & ~decided_val, -1)
+
+
 def _fame_core(creator: torch.Tensor, index: torch.Tensor,
                la_w: torch.Tensor, fd_w: torch.Tensor,
                rounds_w: torch.Tensor, valid_w: torch.Tensor,
@@ -195,43 +246,64 @@ def _fame_core(creator: torch.Tensor, index: torch.Tensor,
     # The reference clips j-1 and j into [0, R-1]; over j in [1, R) both
     # already lie there, so plain slices (views, no host sync) select them.
     for j in range(1, R):
-        voter = valid_w & (rounds_w == j)  # [B, W(y)]
-        diff = j - rounds_w  # [B, W(x)] per candidate
-
         # Derived vote: majority among strongly-seen witnesses of j-1,
-        # evaluated against round j-1's peer-set (hashgraph.go:928-948).
+        # evaluated against round j-1's peer-set.
         prev_w = valid_w & (rounds_w == (j - 1))
         ss_prev = ss_all[b_ax, psi_l[:, j - 1]] & prev_w[:, None, :]
-        n_ss = ss_prev.sum(dim=2, dtype=torch.int32)
-        # exact 0/1 tally: a float32 product of 0/1 matrices is exact below
-        # 2^24 (ops/intdot.py; run_scripted turns TF32 off)
-        yays = torch.matmul(ss_prev.to(torch.float32),
-                            votes.to(torch.float32)).to(torch.int32)
-        nays = n_ss[:, :, None] - yays
-        v = yays >= nays
-        t = torch.maximum(yays, nays)
-        settled = t >= sm_r[:, j, None, None]  # round j's super-majority
-
-        # floor modulo, as jnp's % on negative diff
-        # COIN_ROUND_FREQ (TorchScript takes no global int)
-        is_coin = torch.remainder(diff, 4) == 0
-        derived = torch.where(is_coin[:, None, :] & ~settled,
-                              mid_w[:, :, None], v)
-        new_vote = torch.where((diff == 1)[:, None, :], see_ww, derived)
-
-        active = (voter[:, :, None] & valid_w[:, None, :]
-                  & (diff >= 1)[:, None, :])
-        votes = torch.where(active, new_vote, votes)
-
-        decide_pair = (active & ~is_coin[:, None, :] & (diff > 1)[:, None, :]
-                       & settled)
-        decided_now = decide_pair.any(dim=1)
-        decided_val = (decide_pair & v).any(dim=1)
-        newly = decided_now & (fame == 0)
-        fame = fame.masked_fill(newly & decided_val, 1).masked_fill(
-            newly & ~decided_val, -1
-        )
+        votes, decided_now, decided_val = _vote_round(
+            ss_prev, votes, votes, see_ww, mid_w,
+            valid_w & (rounds_w == j), valid_w, j - rounds_w, sm_r[:, j])
+        fame = _apply_decisions(fame, decided_now, decided_val)
     return see_we, fame
+
+
+def _decided_rounds(fame: torch.Tensor, rounds_w: torch.Tensor,
+                    valid_w: torch.Tensor, sm_r: torch.Tensor,
+                    exists_r: torch.Tensor, prior_dec_r: torch.Tensor,
+                    lb_gate_r: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-round decidedness and hard-blocking ([.., R] each) from the
+    whole witness axis' fame ([.., W]), over any leading batch axes.
+
+    Decidedness replicates ``RoundInfo.witnesses_decided`` (roundInfo.go:
+    78-96): a round is decided when no witness is UNDEFINED and the decided
+    count reaches the round's super-majority, or when the host's sticky
+    pre-sweep flag was already set. Hard-blocking replicates the oracle's
+    receive-scan stops (hashgraph.go:1019-1046)."""
+    R = sm_r.shape[-1]
+    r_ax = torch.arange(R, dtype=torch.int32, device=sm_r.device)
+    # [.., R, W]: witness w is valid and of round r
+    m_rw = valid_w.unsqueeze(-2) & (rounds_w.unsqueeze(-2)
+                                    == r_ax.unsqueeze(-1))
+    undecided_w = (fame == 0).unsqueeze(-2)
+    has_undec = (m_rw & undecided_w).any(dim=-1)
+    cnt = (m_rw & ~undecided_w).sum(dim=-1, dtype=torch.int32)
+    decided_r = prior_dec_r | (exists_r & ~has_undec & (cnt >= sm_r))
+    hard_block_r = ~exists_r | (~decided_r & lb_gate_r)
+    return decided_r, hard_block_r
+
+
+def _receive_round(rr: torch.Tensor, blocked: torch.Tensor,
+                   none_missing: torch.Tensor, n_fw: torch.Tensor,
+                   sm_i: torch.Tensor, rounds_e: torch.Tensor,
+                   undet_e: torch.Tensor, decided_i: torch.Tensor,
+                   hard_block_i: torch.Tensor, i: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round i of the ascending receive scan over any leading batch
+    axes: an event of an earlier round, not yet received or blocked, is
+    received at i when round i is decided, every one of its ``n_fw``
+    famous witnesses sees it (``none_missing`` [.., E]) and they reach the
+    round's super-majority ``sm_i`` [..]; a hard-blocking round stops the
+    scan of every earlier event. Returns (rr, blocked)."""
+    all_see = none_missing & (n_fw >= sm_i).unsqueeze(-1)
+    relevant = rounds_e < i
+    eligible = (
+        decided_i.unsqueeze(-1) & ~blocked & relevant & (rr < 0) & all_see
+        & undet_e
+    )
+    rr = rr.masked_fill(eligible, i)
+    blocked = blocked | (relevant & hard_block_i.unsqueeze(-1))
+    return rr, blocked
 
 
 def _rr_core(see_we: torch.Tensor, rounds_w: torch.Tensor,
@@ -252,14 +324,9 @@ def _rr_core(see_we: torch.Tensor, rounds_w: torch.Tensor,
         fw = valid_w & (rounds_w == i) & (fame_w == 1)  # famous witnesses
         n_fw = fw.sum(dim=1, dtype=torch.int32)
         sees_x = see_we | (~fw)[:, :, None]
-        all_see = sees_x.all(dim=1) & (n_fw >= sm_r[:, i])[:, None]
-        relevant = rounds_e < i
-        eligible = (
-            decided_r[:, i, None] & ~blocked & relevant & (rr < 0) & all_see
-            & undet_e
-        )
-        rr = rr.masked_fill(eligible, i)
-        blocked = blocked | (relevant & hard_block_r[:, i, None])
+        rr, blocked = _receive_round(
+            rr, blocked, sees_x.all(dim=1), n_fw, sm_r[:, i], rounds_e,
+            undet_e, decided_r[:, i], hard_block_r[:, i], i)
     return rr
 
 
@@ -276,26 +343,13 @@ def _sweep_core(creator: torch.Tensor, index: torch.Tensor,
     per-round decidedness → round-received, one int32 output ``[B, W + E]``
     (``[fame | rr]`` per window). Windows never mix: row b of the output is
     window b's single sweep (the JAX package vmaps the same program,
-    babble_tpu/ops/voting.py:319-323).
-
-    Decidedness replicates ``RoundInfo.witnesses_decided`` (roundInfo.go:
-    78-96): a round is decided when no witness is UNDEFINED and the decided
-    count reaches the round's super-majority, or when the host's sticky
-    pre-sweep flag was already set. Hard-blocking replicates the oracle's
-    receive-scan stops (hashgraph.go:1019-1046)."""
+    babble_tpu/ops/voting.py:319-323)."""
     see_we, fame = _fame_core(
         creator, index, la_w, fd_w, rounds_w, valid_w, fame0_w, mid_w,
         wit_idx, member, sm_s, psi, sm_r,
     )
-    R = psi.shape[1]
-    r_ax = torch.arange(R, dtype=torch.int32, device=psi.device)
-    # [B, R, W]: witness w is valid and of round r
-    m_rw = valid_w[:, None, :] & (rounds_w[:, None, :] == r_ax[None, :, None])
-    undecided_w = fame == 0
-    has_undec = (m_rw & undecided_w[:, None, :]).any(dim=2)
-    cnt = (m_rw & ~undecided_w[:, None, :]).sum(dim=2, dtype=torch.int32)
-    decided_r = prior_dec_r | (exists_r & ~has_undec & (cnt >= sm_r))
-    hard_block_r = ~exists_r | (~decided_r & lb_gate_r)
+    decided_r, hard_block_r = _decided_rounds(
+        fame, rounds_w, valid_w, sm_r, exists_r, prior_dec_r, lb_gate_r)
     rr = _rr_core(see_we, rounds_w, valid_w, fame, rounds_e, undet_e,
                   decided_r, hard_block_r, sm_r)
     return torch.cat([fame, rr], dim=1)

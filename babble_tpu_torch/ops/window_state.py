@@ -1,7 +1,7 @@
 """Incremental, device-resident voting windows.
 
-The PyTorch counterpart of the JAX package's ``babble_tpu/ops/window_state.py``
-(all of it but the mesh path). ``ops.voting.build_voting_window`` rebuilds
+The PyTorch counterpart of the JAX package's ``babble_tpu/ops/window_state.py``.
+``ops.voting.build_voting_window`` rebuilds
 the dense window from scratch on every flush — one store fetch per row,
 fresh arrays, a full upload — though consecutive sweeps share almost all
 rows. :class:`WindowState` replaces that:
@@ -22,6 +22,12 @@ rows. :class:`WindowState` replaces that:
   which torch's ``index_copy_`` has not got), and the sweep reads only the
   window's rows, a contiguous prefix. No pad index is clamped onto a real
   row, so no real row is written twice.
+- **Under a mesh** (``WindowState(mesh=...)``), residency is per shard:
+  the 5 replicated buffers lie whole on every shard and the 6 witness-row
+  buffers split by rows (``parallel/voting_shard.resident_shardings``),
+  each shard buffer with its own scratch row. A delta scatters each witness
+  row only into the shard that owns it, and the sharded sweep runs over the
+  buffers. The W bucket is aligned to the mesh size at rebuild.
 - **Rebuild fallback**: whatever the delta protocol cannot express falls
   back to a from-scratch ``build_voting_window`` (with headroom added to
   the shape buckets): a repertoire change, an R/S/E/W bucket overflow, a
@@ -61,6 +67,7 @@ from babble_tpu_torch.ops.voting import (
     VotingWindow,
     _bucket_pow2,
 )
+from babble_tpu_torch.parallel.mesh import aligned_width
 
 
 class StaleWindowError(RuntimeError):
@@ -186,7 +193,11 @@ class WindowState:
     """Persistent incremental window for ONE hashgraph (owned by its
     TensorConsensus). All methods run on the consensus thread."""
 
-    def __init__(self) -> None:
+    def __init__(self, mesh=None) -> None:
+        # With a mesh (parallel/mesh.Mesh) the resident buffers are per
+        # shard and sweeps run the sharded program; the W bucket is aligned
+        # to the mesh size at rebuild so that it divides over the shards.
+        self.mesh = mesh
         self.generation = 0  # bumped on every mirror mutation or rebuild
         self.dirty = True  # force a rebuild on the next snapshot
         self.dirty_reason = "initial"
@@ -311,6 +322,12 @@ class WindowState:
             S0,
             head(R_real, R0, 8, 2),
         )
+        if self.mesh is not None:
+            # the sharded sweep splits the witness axis over every shard;
+            # where no width aligns (a mesh with an odd factor) the bucket
+            # stays, and the sweep runs on one device, counted by
+            # TensorConsensus._mesh_align
+            key = (aligned_width(key[0], self.mesh.size) or key[0],) + key[1:]
         win = voting.repad_window(win, key)
         self.mirror = {f: getattr(win, f).numpy() for f in RESIDENT_FIELDS}
         self.row = dict(win.row)
@@ -687,6 +704,8 @@ class WindowState:
         win = snap.win
         bufs, self.device = self.device, None  # the only reference
         used_delta = snap.delta is not None and bufs is not None
+        if self.mesh is not None and self.key[0] % self.mesh.size == 0:
+            return self._dispatch_mesh(snap, bufs, used_delta)
         try:
             fresh = [getattr(win, f) for f in FRESH_FIELDS]
             if used_delta:
@@ -702,3 +721,26 @@ class WindowState:
         self.device = bufs
         return out, used_delta
 
+    def _dispatch_mesh(self, snap: Snapshot, bufs, used_delta: bool):
+        """``dispatch`` under a mesh: the resident buffers are one list of
+        per-shard tensors a field (``voting_shard.place_resident``). The
+        delta path scatters the delta into them in place and runs the
+        sharded sweep; the full path places the mirrors on the mesh, whose
+        buffers seed residency. The output lands on the mesh's first
+        device. Same ownership rules as the single-device path."""
+        from babble_tpu_torch.parallel import voting_shard
+
+        win = snap.win
+        try:
+            fresh = [getattr(win, f) for f in FRESH_FIELDS]
+            if not used_delta:
+                bufs = voting_shard.place_resident(self.mesh, win)
+            delta = ([torch.from_numpy(a) for a in snap.delta] if used_delta
+                     else None)
+            bufs, out = voting_shard.resident_sweep_fn(self.mesh)(
+                bufs, delta, fresh)
+        except BaseException:
+            self.mark_dirty("dispatch-error")
+            raise
+        self.device = bufs
+        return out, used_delta

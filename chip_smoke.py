@@ -29,7 +29,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    reused window rows;
 4. the same (resident arms only) at 64 validators, one of which leaves
    from round 3 on, so sweeps carry two peer-set slots through K1; the
-   stream is long enough that several blocks commit after the change;
+   stream is long enough that many blocks commit after the change, and its
+   host oracle replays in a child process from the start of the run, beside
+   phases 1-3 and 5-7, so phase 4 runs after phase 7;
 5. the all-at-once DAG pipeline (``ops.dag.run_pipeline``) on the card over
    ``snapshot_from_hashgraph`` of the 16-validator oracle and of a new
    64-validator stream of 4096 signed events (oracle replay only), equal to
@@ -84,7 +86,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    chain equal to a host replay, no single re-check, no offload fallback,
    and with device verification one K3 launch per batch verification
    (counted from 0 once the nodes are up), with the median time of a batch
-   verification in each arm.
+   verification in each arm;
+11. the mesh (``babble_tpu_torch/parallel/``) on virtual shards: mesh
+   entries that all name the one card, so that every exchange between
+   shards and every per-shard kernel launch runs on it (no NVLink is
+   measured). Rectangular K1 (V voter rows against W candidates, the
+   sharded sweep's shard shapes at N = 4, and a batch) and K2's block form
+   (a sharded_strongly_see shard at (4096, 64), a ring step's block at
+   column 2048 of a 4096 row) against their plain versions on random and
+   edge coordinates, with times, bounds and shares; phases 3 and 4's
+   streams through TensorConsensus(mesh=...) at N = 1 and 4 (resident, no
+   batcher, min_window 0; the 16-validator one in syncs of 32, beside a
+   single-device arm, so that the delta path runs), equal to those phases'
+   oracles, with no mesh fallback, delta sweeps, K1 launches = N x sweeps,
+   the pad rows and the dispatch and device ms per sweep against the
+   single device; the batcher's coprocessor lane (two validators on one
+   4-shard mesh, one wave serving both); and the collectives and
+   sharded_batched_pipeline at (dp 2, sp 2) equal to their single-device
+   counterparts.
 
 For each live path (the replays of phases 3 and 4, and the node cluster of
 phase 8: its batched waves and its per-node sweeps), K1 is also held
@@ -107,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import random
 import statistics
 import sys
@@ -117,7 +137,9 @@ SYNC_EVENTS = 64
 TX_PER_EVENT = 4
 TX_BYTES = 100
 # events per stream: 256 per validator at 16 validators, and at 64 enough
-# for the run to commit well past the peer-set change
+# for the run to commit many blocks past the peer-set change (16384 commits
+# 20 after it; its host oracle takes 98-159 s, so it replays in a child
+# process beside phases 1-4's card work: OracleProcess)
 EVENTS_16 = 4096
 EVENTS_64 = 16384
 # the DAG pipeline's 64-validator stream: as large a window as the live
@@ -189,12 +211,14 @@ def launch_floor_ms() -> float:
     return time_on_device(lambda: torch.cuda._sleep(0))
 
 
-def k1_bound_ms(W: int, P: int, S: int):
+def k1_bound_ms(W: int, P: int, S: int, V=None):
     """Least time for K1's work on an H100 SXM: each input read once and
-    the output written once at HBM rate, or S·W²·P compare-adds (two 32-bit
-    operations each) at the CUDA cores' rate — whichever is larger."""
-    nbytes = 2 * 4 * W * P + S * P + 4 * S * W * W
-    ops = 2 * S * W * W * P
+    the output written once at HBM rate, or S·V·W·P compare-adds (two
+    32-bit operations each) at the CUDA cores' rate — whichever is larger.
+    V voter rows against W candidates (V = W where None)."""
+    V = W if V is None else V
+    nbytes = 4 * (V + W) * P + S * P + 4 * S * V * W
+    ops = 2 * S * V * W * P
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -338,13 +362,15 @@ def check_k1(shape, seed: int) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def k2_bound_ms(B: int, E: int, P: int):
+def k2_bound_ms(B: int, E: int, P: int, Y=None):
     """Least time for K2's work on an H100 SXM: la and fd read once and the
-    bool output written once at HBM rate, or B·E²·P compare-adds (two
+    bool output written once at HBM rate, or B·E·Y·P compare-adds (two
     32-bit operations each) at the CUDA cores' rate — whichever is
-    larger."""
-    nbytes = 2 * 4 * B * E * P + B * E * E
-    ops = 2 * B * E * E * P
+    larger. E rows of la against Y of fd (Y = E where None: the square
+    form)."""
+    Y = E if Y is None else Y
+    nbytes = 4 * B * (E + Y) * P + B * E * Y
+    ops = 2 * B * E * Y * P
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -443,9 +469,9 @@ def gossip_stream(n_peers: int, n_events: int, seed: int):
 # -- replays -----------------------------------------------------------------
 
 
-def replay(events, peers, accel=None, peer_sets=()):
+def replay(events, peers, accel=None, peer_sets=(), sync=SYNC_EVENTS):
     """Replay the stream through the port's live pipeline in syncs of
-    SYNC_EVENTS events with a flush after each (Core.sync's cadence), then
+    ``sync`` events with a flush after each (Core.sync's cadence), then
     drain any in-flight sweep (wall time included). Returns (hashgraph,
     wall seconds)."""
     from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
@@ -456,8 +482,8 @@ def replay(events, peers, accel=None, peer_sets=()):
         h.store.set_peer_set(r, ps)
     h.accel = accel
     t0 = time.perf_counter()
-    for b in range(0, len(events), SYNC_EVENTS):
-        for ev in events[b:b + SYNC_EVENTS]:
+    for b in range(0, len(events), sync):
+        for ev in events[b:b + sync]:
             h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
                                              set_wire_info=True)
         h.flush_consensus()
@@ -497,44 +523,85 @@ def consensus_state(h):
     return events, rounds, blocks, sorted(h.undetermined_events)
 
 
+def oracle_summary(events, peers, peer_sets=()) -> dict:
+    """The host oracle's replay of a stream (no offload), reduced to what
+    the checks read: its consensus_state, its wall seconds, the
+    transactions it committed and each block's round received."""
+    h, seconds = replay(events, peers, peer_sets=peer_sets)
+    state = consensus_state(h)
+    blocks = [h.store.get_block(b) for b in range(len(state[2]))]
+    return {"state": state, "seconds": seconds,
+            "n_tx": sum(len(b.transactions()) for b in blocks),
+            "rounds_received": [b.round_received() for b in blocks]}
+
+
+def _oracle_child(send, events, peers, peer_sets) -> None:
+    try:
+        send.send(("ok", oracle_summary(events, peers, peer_sets)))
+    except BaseException:
+        import traceback
+
+        send.send(("error", traceback.format_exc()))
+
+
+class OracleProcess:
+    """``oracle_summary`` in a child process, started at once, so that a
+    long host oracle replays beside the card phases instead of before the
+    replays it is held against. The child is spawned (the parent holds the
+    card) and touches no card; it is a daemon, ended with the script."""
+
+    def __init__(self, events, peers, peer_sets=()):
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_oracle_child, daemon=True,
+                                 args=(send, events, peers, peer_sets))
+        self._proc.start()
+        send.close()
+
+    def result(self) -> dict:
+        try:
+            status, out = self._recv.recv()
+        except EOFError:
+            self._proc.join()
+            raise AssertionError("the oracle process ended with code "
+                                 f"{self._proc.exitcode} and no result")
+        self._proc.join()
+        if status != "ok":
+            raise AssertionError(f"the oracle process failed:\n{out}")
+        return out
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join()
+
+
 def _pct(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))] if xs else 0.0
 
 
 def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
-                  min_blocks_after=(-1, 1), no_resident_arm=False):
+                  min_blocks_after=(-1, 1), no_resident_arm=False,
+                  oracle=None):
     """Oracle, accel at defaults, accel with min_window=0 (both on resident
     windows), and with ``no_resident_arm`` min_window=0 without them (a
     full window build and upload every sweep): identical consensus, no
-    fallback, one K1 launch per device sweep. The oracle must commit at
-    least ``min_blocks_after[1]`` blocks received in rounds after
-    ``min_blocks_after[0]``. Returns (one record per arm, oracle)."""
+    fallback, one K1 launch per device sweep. The oracle replays here, or
+    in ``oracle``, an OracleProcess of the same stream, while the arms
+    replay. It must commit at least ``min_blocks_after[1]`` blocks received
+    in rounds after ``min_blocks_after[0]``. Returns (one record per arm,
+    the oracle's consensus_state, a hashgraph holding it: the oracle's, or
+    with ``oracle`` the last arm's)."""
     from babble_tpu_torch.hashgraph.accel import TensorConsensus
     from babble_tpu_torch.ops import kernels
 
-    oracle, oracle_s = replay(events, peers, peer_sets=peer_sets)
-    want = consensus_state(oracle)
-    n_blocks = len(want[2])
-    n_tx = sum(len(oracle.store.get_block(b).transactions())
-               for b in range(n_blocks))
-    log(f"[{label}] oracle: {len(events)} events in {oracle_s:.3f} s "
-        f"({len(events) / oracle_s:.1f} events/s), {n_blocks} blocks, "
-        f"{n_tx} tx committed, {len(want[3])} undetermined")
-    after_round, min_after = min_blocks_after
-    rounds_received = [oracle.store.get_block(b).round_received()
-                       for b in range(n_blocks)]
-    n_after = sum(r > after_round for r in rounds_received)
-    log(f"[{label}] blocks by round received: {rounds_received}")
-    if n_after < min_after:
-        raise AssertionError(f"[{label}] the oracle committed {n_after} blocks "
-                             f"after round {after_round}, fewer than "
-                             f"{min_after}")
     results = []
     arms = [("defaults", {}), ("min_window=0", {"min_window": 0})]
     if no_resident_arm:
         arms.append(("min_window=0, no resident",
                      {"min_window": 0, "resident": False}))
+    replayed = []
     for arm, kw in arms:
         # one node alone: no batcher (BABBLE_ACCEL_BATCH=0), so the
         # resident windows' device program runs (or, without them,
@@ -547,8 +614,37 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
         kernels.reset_launch_counts()
         h, wall = replay(events, peers, accel=accel, peer_sets=peer_sets)
         launches = kernels.launch_counts()["member_ss_counts"]
+        replayed.append((arm, kw, accel, samples, h, wall, launches,
+                         consensus_state(h)))
+
+    if oracle is None:
+        oracle_h, oracle_s = replay(events, peers, peer_sets=peer_sets)
+        want = consensus_state(oracle_h)
+        blocks = [oracle_h.store.get_block(b) for b in range(len(want[2]))]
+        n_tx = sum(len(b.transactions()) for b in blocks)
+        rounds_received = [b.round_received() for b in blocks]
+    else:
+        t0 = time.perf_counter()
+        summary = oracle.result()
+        log(f"[{label}] waited {time.perf_counter() - t0:.2f} s for the "
+            "oracle process after the arms")
+        oracle_h = replayed[-1][4]
+        want, oracle_s = summary["state"], summary["seconds"]
+        n_tx, rounds_received = summary["n_tx"], summary["rounds_received"]
+    n_blocks = len(want[2])
+    log(f"[{label}] oracle: {len(events)} events in {oracle_s:.3f} s "
+        f"({len(events) / oracle_s:.1f} events/s), {n_blocks} blocks, "
+        f"{n_tx} tx committed, {len(want[3])} undetermined"
+        + (" (in a child process)" if oracle is not None else ""))
+    after_round, min_after = min_blocks_after
+    n_after = sum(r > after_round for r in rounds_received)
+    log(f"[{label}] blocks by round received: {rounds_received}")
+    if n_after < min_after:
+        raise AssertionError(f"[{label}] the oracle committed {n_after} blocks "
+                             f"after round {after_round}, fewer than "
+                             f"{min_after}")
+    for arm, kw, accel, samples, h, wall, launches, got in replayed:
         st = accel.stats()
-        got = consensus_state(h)
         for i, what in enumerate(("events", "rounds/fame", "blocks",
                                   "undetermined")):
             if got[i] != want[i]:
@@ -578,11 +674,12 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
         log(f"[{label}/{arm}] buckets (W,E,P,S,R): {st['accel_buckets']}")
         log(f"[{label}/{arm}] per-sweep stages: {json.dumps(split)}")
         n = max(1, accel.sweeps)
+        rec = {"arm": arm, "launches": launches, "buckets": accel.buckets,
+               "per_sweep_ms": per_sweep_stages(accel)}
         if not accel.resident:
             log(f"[{label}/{arm}] no resident windows: ms per sweep: build "
                 f"{1e3 * accel.stage_s['build'] / n:.3f}")
-            results.append({"arm": arm, "launches": launches,
-                            "buckets": accel.buckets})
+            results.append(rec)
             continue
         log(f"[{label}/{arm}] resident windows: rows_delta "
             f"{accel.rows_delta_total}, rows_reused {accel.rows_reused_total},"
@@ -590,9 +687,15 @@ def run_main_path(label, events, peers, peer_sets=(), min_slots=1,
             f"{accel.delta_sweeps} of {accel.sweeps}; ms per sweep: build "
             f"{1e3 * accel.stage_s['build'] / n:.3f}, delta_scan + pack "
             f"{1e3 * (accel.stage_s['delta_scan'] + accel.stage_s['pack']) / n:.3f}")
-        results.append({"arm": arm, "launches": launches,
-                        "buckets": accel.buckets})
-    return results, oracle
+        results.append(rec)
+    return results, want, oracle_h
+
+
+def per_sweep_stages(accel) -> dict:
+    """An offload's dispatch (host: upload and enqueue) and kernel (device
+    span) ms per applied sweep."""
+    n = max(1, accel.sweeps)
+    return {k: 1e3 * accel.stage_s[k] / n for k in ("dispatch", "kernel")}
 
 
 def profile_sweep(label, h, reps: int = 10) -> None:
@@ -2443,6 +2546,404 @@ def device_verification(seed: int) -> list:
 
 
 # Run in a tree of the repo (this one or an earlier commit's) by
+# -- phase 11: the mesh --------------------------------------------------------
+
+# shards of the virtual mesh: N entries that all name the one card
+MESH_N = 4
+# rectangular K1 (V, W, P, S) at the sharded sweep's shapes at N = 4: a
+# 128-witness bucket of 16 validators and a 256 one of 64 with two slots;
+# and one batched launch (B, V, W, P, S)
+K1_RECT_SHAPES = [(32, 128, 16, 1), (64, 256, 64, 2), (4, 64, 256, 64, 2)]
+# K2's block form (X, Y, P, ldo, col0): a sharded_strongly_see shard of
+# (4096, 64) over 4 shards, and one ring step's block written at column 2048
+# of a 4096-wide row
+K2_BLOCK_SHAPES = [(1024, 4096, 64, 4096, 0), (1024, 1024, 64, 4096, 2048)]
+# the 16-validator mesh replays sync 32 events at a time: a 64-event sync
+# outgrows the resident delta bucket (max(32, E/8) rows) and uploads the
+# whole window, so that phase 3 never takes the delta path
+MESH_SYNC_16 = 32
+# the second validator of the coprocessor lane: its own stream and peers
+COPRO_PEERS = 12
+COPRO_EVENTS = 2048
+
+
+def mesh_devices(n: int) -> list:
+    """``n`` shard entries that all name the card: virtual shards."""
+    import torch
+
+    return [torch.device("cuda", 0)] * n
+
+
+def virtual_mesh(n: int, dp=None):
+    """A (dp, sp) mesh of ``n`` virtual shards."""
+    from babble_tpu_torch.parallel import consensus_mesh
+
+    return consensus_mesh(n, dp=dp, devices=mesh_devices(n))
+
+
+def check_k1_rect(shape, seed: int) -> dict:
+    """Rectangular K1, V voter rows against W candidates, equal to its
+    plain version on random and on edge-value coordinates, and timed;
+    ``shape`` is (V, W, P, S) or (B, V, W, P, S)."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    *batch, V, W, P, S = shape
+    random_in = k1_inputs(W, P, S, seed, *batch)
+    edge_in = tuple(torch.from_numpy(a).cuda()
+                    for a in k1_edge_inputs(W, P, S, seed, *batch))
+    for la, fd, member in (random_in, edge_in):
+        la = la[..., :V, :].contiguous()
+        got = kernels.member_ss_counts(la, fd, member)
+        want = kernels.member_ss_counts_plain(la, fd, member)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (*batch, S, V, W) or not torch.equal(got,
+                                                                    want):
+            raise AssertionError(f"K1 rectangular {shape}: "
+                                 f"{int((got != want).sum())} counts differ "
+                                 "from plain")
+    la, fd, member = random_in
+    la = la[..., :V, :].contiguous()
+    ms = time_on_device(lambda: kernels.member_ss_counts(la, fd, member))
+    plain_ms = time_on_device(
+        lambda: kernels.member_ss_counts_plain(la, fd, member), reps=20)
+    bound_ms, bound_by = k1_bound_ms(W, P, S, V)
+    bound_ms *= batch[0] if batch else 1
+    return {"shape": list(shape), "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_k2_block(shape, seed: int) -> dict:
+    """K2's block form, la [X, P] against fd [Y, P] into columns col0 ..
+    col0 + Y of a [X, ldo] output, equal to its plain version (the whole
+    output, the columns it must not touch included) on random and on
+    edge-value coordinates, and timed."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    X, Y, P, ldo, col0 = shape
+    n = max(X, Y)
+    sm = 2 * P // 3 + 1
+    la, fd = k2_inputs(1, n, P, seed)
+    la_e, fd_e = (torch.from_numpy(a).cuda()
+                  for a in edge_coordinates((n, P), seed))
+    sm_e = edge_super_majority(la_e.cpu().numpy(), fd_e.cpu().numpy())
+    for a, f, t in ((la, fd, sm), (la_e, fd_e, sm_e)):
+        a, f = a[:X].contiguous(), f[n - Y:].contiguous()
+        before = torch.from_numpy(
+            np.random.RandomState(seed).rand(X, ldo) < 0.5).cuda()
+        got = kernels.strongly_see_block(a, f, t, before.clone(), col0)
+        want = kernels.strongly_see_block_plain(a, f, t, before.clone(), col0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K2 block {shape}: "
+                                 f"{int((got != want).sum())} entries differ "
+                                 "from plain")
+    a, f = la[:X].contiguous(), fd[n - Y:].contiguous()
+    out = torch.zeros((X, ldo), dtype=torch.bool, device="cuda")
+    ms = time_on_device(lambda: kernels.strongly_see_block(a, f, sm, out,
+                                                           col0))
+    plain_ms = time_on_device(
+        lambda: kernels.strongly_see_block_plain(a, f, sm, out, col0),
+        reps=20)
+    bound_ms, bound_by = k2_bound_ms(1, X, P, Y)
+    return {"shape": list(shape), "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mesh_replay(label, events, peers, want, n: int, peer_sets=(),
+                sync=SYNC_EVENTS) -> dict:
+    """The stream through TensorConsensus on the card (resident windows,
+    no batcher, min_window 0), on a virtual mesh of ``n`` shards, or on one
+    device where ``n`` is 0: consensus equal to the oracle's ``want``, no
+    fallback, and on a mesh no mesh fallback, delta sweeps, and K1 launches
+    equal to n x sweeps (counted from 0 for this run)."""
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
+    from babble_tpu_torch.ops import kernels
+
+    arm = f"N {n}" if n else "single device"
+    accel = TensorConsensus(device="cuda", batcher=False, resident=True,
+                            min_window=0,
+                            mesh=virtual_mesh(n) if n else None)
+    kernels.reset_launch_counts()
+    h, wall = replay(events, peers, accel=accel, peer_sets=peer_sets,
+                     sync=sync)
+    launches = kernels.launch_counts()["member_ss_counts"]
+    got = consensus_state(h)
+    for i, what in enumerate(("events", "rounds/fame", "blocks",
+                              "undetermined")):
+        if got[i] != want[i]:
+            raise AssertionError(f"[mesh {label}/{arm}] {what} differ from "
+                                 "the host oracle")
+    st = accel.stats()
+    if accel.fallbacks or accel.sweeps <= 0:
+        raise AssertionError(f"[mesh {label}/{arm}] fallbacks "
+                             f"{accel.fallbacks}, sweeps {accel.sweeps}")
+    if launches != max(n, 1) * accel.sweeps:
+        raise AssertionError(f"[mesh {label}/{arm}] K1 launches {launches} "
+                             f"!= {max(n, 1)} x sweeps {accel.sweeps}")
+    if n and (accel.mesh_fallbacks or accel.delta_sweeps <= 0):
+        raise AssertionError(f"[mesh {label}/{arm}] mesh fallbacks "
+                             f"{accel.mesh_fallbacks}, delta sweeps "
+                             f"{accel.delta_sweeps}")
+    per = per_sweep_stages(accel)
+    log(f"[mesh {label}/{arm}] blocks identical to the oracle "
+        f"({len(want[2])}); accel_mesh {st['accel_mesh']}, sweeps "
+        f"{accel.sweeps}, delta sweeps {accel.delta_sweeps}, K1 launches "
+        f"{launches}, mesh_fallbacks {accel.mesh_fallbacks}, mesh_pad_rows "
+        f"{accel.mesh_pad_rows}; ms per sweep: dispatch "
+        f"{per['dispatch']:.3f}, kernel (device span) {per['kernel']:.3f}; "
+        f"{len(events) / wall:.1f} events/s ({wall:.3f} s, syncs of {sync})")
+    shapes = Counter()
+    for (W, _E, P, S, _R), k in accel.buckets.items():
+        shapes[(W // max(n, 1), W, P, S)] += k
+    return {"arm": arm, "launches": launches, "per_sweep_ms": per,
+            "shapes": shapes}
+
+
+def copro_lane(events_a, peers_a, want_a, seed: int) -> dict:
+    """The coprocessor lane on the card: two TensorConsensus with the
+    batcher on (pipelined, resident snapshots, min_window 0) on one virtual
+    mesh of MESH_N shards, replaying two streams at once (the 16-validator
+    one and a COPRO_PEERS-validator one), one sync of each, then both
+    flushes while the batcher's dispatcher is held, so that both windows
+    land in one wave. Each equals its oracle; the lane ran waves, at least
+    one serving two windows; K1 launched MESH_N times a window served."""
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.ops import kernels
+
+    events_b, _keys, peers_b = gossip_stream(COPRO_PEERS, COPRO_EVENTS, seed)
+    oracle_b, oracle_s = replay(events_b, peers_b)
+    want_b = consensus_state(oracle_b)
+    log(f"[copro] second stream: {len(events_b)} events at {COPRO_PEERS} "
+        f"validators, oracle {oracle_s:.2f} s (set-up)")
+    mesh = virtual_mesh(MESH_N)
+    svc = SweepBatcher.instance()
+    base = svc.stats()
+    runs = []
+    for name, events, peers in (("a", events_a, peers_a),
+                                ("b", events_b, peers_b)):
+        h = Hashgraph(InmemStore(1_000_000))
+        h.init(peers)
+        h.accel = TensorConsensus(device="cuda", batcher=True, min_window=0,
+                                  pipeline=True, mesh=mesh,
+                                  owner=f"copro-{name}")
+        runs.append((h, events))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = max(len(e) for _h, e in runs)
+    for b in range(0, steps, SYNC_EVENTS):
+        for h, events in runs:
+            for ev in events[b:b + SYNC_EVENTS]:
+                h.insert_event_and_run_consensus(
+                    Event(ev.body, ev.signature), set_wire_info=True)
+        with svc._lock:  # both submissions queue before the wave is taken
+            for h, _events in runs:
+                h.flush_consensus()
+    deadline = time.monotonic() + DRAIN_S
+    while any(h.accel.busy() for h, _e in runs):
+        if time.monotonic() > deadline:
+            raise AssertionError("[copro] pipelined sweeps never drained")
+        time.sleep(0.001)
+        for h, _events in runs:
+            h.flush_consensus()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()["member_ss_counts"]
+    for (h, _e), want, name in zip(runs, (want_a, want_b), "ab"):
+        got = consensus_state(h)
+        for i, what in enumerate(("events", "rounds/fame", "blocks",
+                                  "undetermined")):
+            if got[i] != want[i]:
+                raise AssertionError(f"[copro/{name}] {what} differ from its "
+                                     "oracle")
+        if h.accel.fallbacks or h.accel.sweeps <= 0:
+            raise AssertionError(f"[copro/{name}] fallbacks "
+                                 f"{h.accel.fallbacks}, sweeps "
+                                 f"{h.accel.sweeps}")
+    s = svc.stats()
+    waves = s["copro_waves"] - base["copro_waves"]
+    windows = s["copro_windows"] - base["copro_windows"]
+    if waves < 1 or s["copro_max"] < 2 or s["copro_validators"] < 2:
+        raise AssertionError(f"[copro] waves {waves}, most windows a wave "
+                             f"{s['copro_max']}, validators "
+                             f"{s['copro_validators']}")
+    if launches != MESH_N * windows:
+        raise AssertionError(f"[copro] K1 launches {launches} != {MESH_N} x "
+                             f"windows {windows}")
+    log(f"[copro] two validators on one {MESH_N}-shard mesh: each equals its "
+        f"oracle; {waves} waves served {windows} windows (at most "
+        f"{s['copro_max']} a wave), validators {s['copro_validators']}, K1 "
+        f"launches {launches}; sweeps {[h.accel.sweeps for h, _e in runs]}, "
+        f"{wall:.2f} s")
+    return {"waves": waves, "windows": windows, "launches": launches}
+
+
+def mesh_collectives(batch_arrays, batch_sm, seed: int) -> dict:
+    """On a virtual mesh of MESH_N shards: sharded_strongly_see and
+    ring_strongly_see equal to K2 at (4096, 64), sharded_vote_counts to the
+    plain tally, and sharded_batched_pipeline at (dp 2, sp 2) to
+    batched_pipeline on phase 6's batch of 8. Returns K2's block-form
+    launches by path (counted from 0 here)."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.parallel import (
+        batched_pipeline,
+        ring_mesh,
+        ring_strongly_see,
+        sharded_batched_pipeline,
+        sharded_strongly_see,
+        sharded_vote_counts,
+    )
+
+    import numpy as np
+
+    E, P = 4096, 64
+    sm = 2 * P // 3 + 1
+    la, fd = k2_inputs(1, E, P, seed)
+    want = kernels.strongly_see(la, fd, sm)
+    mesh = virtual_mesh(MESH_N)
+    ring = ring_mesh(MESH_N, devices=mesh_devices(MESH_N))
+    kernels.reset_launch_counts()
+    got = sharded_strongly_see(mesh, sm)(la, fd)
+    n_shard = kernels.launch_counts()["strongly_see_block"]
+    got_ring = ring_strongly_see(ring, sm)(la, fd)
+    n_ring = kernels.launch_counts()["strongly_see_block"] - n_shard
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got_ring, want)):
+        raise AssertionError("[mesh] sharded or ring strongly-see differs "
+                             "from K2")
+    votes = want[:, :E // 2]
+    eligible = torch.from_numpy(
+        np.random.RandomState(seed).rand(E) < 0.7).cuda()
+    counts = sharded_vote_counts(mesh)(votes, eligible)
+    if not torch.equal(counts, (votes & eligible[:, None]).sum(
+            0, dtype=torch.int32)):
+        raise AssertionError("[mesh] sharded vote counts differ")
+    round_bound = 512 // batch_sm + 2
+    grid = virtual_mesh(MESH_N, dp=2)
+    before = kernels.launch_counts()["strongly_see_block"]
+    got_p = sharded_batched_pipeline(grid, batch_sm, round_bound)(
+        *batch_arrays)
+    n_pipe = kernels.launch_counts()["strongly_see_block"] - before
+    want_p = batched_pipeline(batch_sm, round_bound, device="cuda")(
+        *batch_arrays)
+    for name, g, w in zip(("see", "ss", "packed"), got_p, want_p):
+        if not torch.equal(g, w):
+            raise AssertionError(f"[mesh] sharded pipeline {name} differs")
+    if (n_shard, n_ring, n_pipe) != (MESH_N, MESH_N * MESH_N, 2 * 2):
+        raise AssertionError(f"[mesh] K2 block launches {n_shard}, {n_ring},"
+                             f" {n_pipe}")
+    log(f"[mesh] on {MESH_N} virtual shards: sharded_strongly_see "
+        f"({n_shard} block launches) and ring_strongly_see ({n_ring}) equal "
+        f"K2 at ({E}, {P}); sharded_vote_counts equals the plain tally; "
+        f"sharded_batched_pipeline at (dp 2, sp 2) equals batched_pipeline "
+        f"on phase 6's batch of 8 ({n_pipe} block launches)")
+    return {"sharded": n_shard, "ring": n_ring, "pipeline": n_pipe}
+
+
+def k1_rect_tile(shape) -> int:
+    """The tile side K1 takes at a rectangular (B,) V, W, P, S shape."""
+    from babble_tpu_torch.ops import kernels
+
+    *batch, V, W, _P, S = shape
+    return kernels.member_ss_tile(W, S, batch[0] if batch else 1, V=V)
+
+
+def mesh_phase(seed, streams, single_64, batch_arrays, batch_sm) -> list:
+    """Phase 11. ``streams`` holds phases 3 and 4's (events, peers,
+    peer_sets, oracle state); ``single_64`` phase 4's min_window 0 arm
+    record (the same replay on one device). Returns the kernels-line rows
+    of the rectangular K1 and of K2's block form."""
+    from babble_tpu_torch.ops import kernels
+
+    for i, shape in enumerate(K1_RECT_SHAPES):
+        row = check_k1_rect(shape, seed + i)
+        log(f"K1 rectangular (B,) V, W, P, S {shape}: equal to plain on "
+            f"random and edge values; kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of "
+            f"bound, tile {k1_rect_tile(shape)}")
+    k2_rows = []
+    for i, shape in enumerate(K2_BLOCK_SHAPES):
+        row = check_k2_block(shape, seed + 10 + i)
+        k2_rows.append(row)
+        log(f"K2 block X, Y, P, ldo, col0 {shape}: equal to plain on random "
+            f"and edge values; kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of "
+            f"bound, tile {kernels.strongly_see_block_tile(shape[0], shape[1])}")
+
+    rows = []
+    (ev16, peers16, _ps16, want16), (ev64, peers64, ps64, want64) = streams
+    arms16 = [mesh_replay("16", ev16, peers16, want16, n, sync=MESH_SYNC_16)
+              for n in (0, 1, MESH_N)]
+    arms64 = [mesh_replay("64", ev64, peers64, want64, n, peer_sets=ps64)
+              for n in (1, MESH_N)]
+    for label, single, arms in (("16", arms16[0], arms16[1:]),
+                                ("64", single_64, arms64)):
+        log(f"[mesh {label}] ms per sweep, dispatch / kernel: single device "
+            f"{single['per_sweep_ms']['dispatch']:.3f} / "
+            f"{single['per_sweep_ms']['kernel']:.3f}; "
+            + "; ".join(f"{a['arm']} {a['per_sweep_ms']['dispatch']:.3f} / "
+                        f"{a['per_sweep_ms']['kernel']:.3f}" for a in arms)
+            + " (virtual shards on one card: the host cost of the shard "
+            "loop, not NVLink)")
+        main = arms[-1]
+        shape = max(main["shapes"], key=main["shapes"].get)
+        row = check_k1_rect(shape, seed + 20 + len(rows))
+        log(f"K1 rectangular at the {label}-validator N {MESH_N} path's most "
+            f"frequent shard shape (V, W, P, S) {shape}: equal to plain; "
+            f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+            f"bound {row['bound_ms']:.3g} ms ({row['bound_by']}); launches "
+            f"{main['launches']}; shapes {dict(main['shapes'])}")
+        rows.append({
+            "name": f"member_ss_counts[rectangular, {label} validators, N "
+                    f"{MESH_N} mesh sweep]",
+            "route": "cuda",
+            "source": "babble_tpu_torch/csrc/member_ss.cu",
+            "replaces": "babble_tpu/parallel/voting_shard.py:84-86",
+            "launches": main["launches"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "shape": row["shape"],
+            "launches_by_arm": {a["arm"]: a["launches"] for a in arms},
+        })
+
+    copro_lane(ev16, peers16, want16, seed + 30)
+    blocks = mesh_collectives(batch_arrays, batch_sm, seed + 40)
+    for row, (name, launches) in zip(
+            k2_rows, (("sharded_strongly_see shard", blocks["sharded"]),
+                      ("ring step", blocks["ring"]))):
+        X, Y, P, ldo, col0 = row["shape"]
+        rows.append({
+            "name": f"strongly_see_block[{name}, X {X}, Y {Y}, P {P}, "
+                    f"col0 {col0}]",
+            "route": "cuda",
+            "source": "babble_tpu_torch/csrc/strongly_see.cu",
+            "replaces": "babble_tpu/parallel/collectives.py:36-109",
+            "launches": launches,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "shape": row["shape"],
+            "launches_by_path": blocks,
+        })
+    return rows
+
+
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
 _AB_CHILD = """
@@ -2588,6 +3089,15 @@ def main(argv=None) -> int:
     if args.nodes_ab:
         nodes_ab(args.nodes_ab)
         return 0
+    # phase 4's stream; its host oracle replays in a child process from
+    # here on, beside the card work of phases 1-3 and 5-7
+    t0 = time.perf_counter()
+    events64, _keys, peers64 = gossip_stream(64, EVENTS_64, args.seed + 1)
+    change64 = [(CHANGE_ROUND, peers64.with_removed_peer(peers64.peers[-1]))]
+    oracle64_proc = OracleProcess(events64, peers64, change64)
+    log(f"[64] stream: {len(events64)} signed events in "
+        f"{time.perf_counter() - t0:.2f} s, its oracle started in a child "
+        "process (set-up)")
     t0 = time.perf_counter()
     so = kernels.build()
     log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}\n"
@@ -2632,28 +3142,14 @@ def main(argv=None) -> int:
     events, _keys, peers = gossip_stream(16, EVENTS_16, args.seed)
     log(f"[16] stream: {len(events)} signed events in "
         f"{time.perf_counter() - t0:.2f} s (set-up)")
-    res16, oracle16 = run_main_path("16", events, peers,
-                                    no_resident_arm=True)
+    res16, want16, oracle16 = run_main_path("16", events, peers,
+                                            no_resident_arm=True)
+    # phase 11 replays both streams against these oracles' decisions
+    mesh_streams = [(events, peers, (), want16)]
     profile_sweep("16", oracle16)
     rows = [k1_row("16 validators", k1_shapes(res16),
                    {r["arm"]: r["launches"] for r in res16}, "defaults",
                    seed=args.seed + 100)]
-
-    # Phase 4: 64 validators, one leaving from CHANGE_ROUND on
-    t0 = time.perf_counter()
-    events, _keys, peers = gossip_stream(64, EVENTS_64, args.seed + 1)
-    smaller = peers.with_removed_peer(peers.peers[-1])
-    log(f"[64] stream: {len(events)} signed events in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
-    res64, oracle64 = run_main_path(
-        "64", events, peers, peer_sets=[(CHANGE_ROUND, smaller)], min_slots=2,
-        min_blocks_after=(CHANGE_ROUND, MIN_BLOCKS_AFTER_CHANGE),
-    )
-    profile_sweep("64", oracle64)
-    rows.append(k1_row("64 validators", k1_shapes(res64),
-                       {r["arm"]: r["launches"] for r in res64}, "defaults",
-                       seed=args.seed + 101))
-    del oracle64
 
     # Phases 5 and 6: the DAG pipeline, K2's path; counts from 0 to here
     t0 = time.perf_counter()
@@ -2693,6 +3189,22 @@ def main(argv=None) -> int:
     rows += [k2_row(k2_checked[shape], k2_at[shape], by_phase)
              for shape in K2_ROWS]
 
+    # Phase 4: 64 validators, one leaving from CHANGE_ROUND on; it runs
+    # after phases 5-7, so that the oracle's replay, started with the
+    # script, has finished beside them
+    res64, want64, h64 = run_main_path(
+        "64", events64, peers64, peer_sets=change64, min_slots=2,
+        min_blocks_after=(CHANGE_ROUND, MIN_BLOCKS_AFTER_CHANGE),
+        oracle=oracle64_proc,
+    )
+    profile_sweep("64", h64)
+    rows.append(k1_row("64 validators", k1_shapes(res64),
+                       {r["arm"]: r["launches"] for r in res64}, "defaults",
+                       seed=args.seed + 101))
+    mesh_streams.append((events64, peers64, change64, want64))
+    single_64 = next(r for r in res64 if r["arm"] == "min_window=0")
+    del h64
+
     # Phase 8: 16 nodes on the card in one (fresh) process; counts from 0
     # to the end of each arm, in that process
     t0 = time.perf_counter()
@@ -2722,6 +3234,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     rows += device_verification(args.seed + 10)
     log(f"[verify] phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # Phase 11: the mesh, on virtual shards of the card; counts from 0 for
+    # each run
+    t0 = time.perf_counter()
+    rows += mesh_phase(args.seed + 200, mesh_streams, single_64,
+                       batch_arrays, batch_sm)
+    log(f"[mesh] phase 11: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -22,6 +22,7 @@ from babble_tpu_torch.common.errors import StoreError, StoreErrorKind
 from babble_tpu_torch.crypto.canonical import canonical_dumps as p_dumps
 from babble_tpu_torch.hashgraph import accel as accel_mod
 from babble_tpu_torch.hashgraph.accel import TensorConsensus
+from babble_tpu_torch.parallel import consensus_mesh
 from babble_tpu_torch.ops import kernels, voting
 
 from tests.test_accel import BUILDERS, _ordered_events
@@ -272,15 +273,13 @@ def test_accel_sweep_error_propagates(monkeypatch, pipeline):
 
 
 @pytest.mark.parametrize("kwarg", [
-    {"mesh": object()}, {"batcher": True}, {"resident": True},
+    {"mesh": consensus_mesh(2, devices=["cpu", "cpu"])}, {"batcher": True},
+    {"resident": True},
 ])
 def test_unported_modes_raise(kwarg):
-    """Only the mesh is still to port: it raises; the batcher and resident
-    windows, ported, construct."""
-    if "mesh" in kwarg:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TensorConsensus(device="cpu", **kwarg)
-        return
+    """Every mode of the JAX package's offload is ported: a mesh (of the
+    offload device's type; tests/test_torch_coprocessor.py), the batcher
+    and resident windows construct."""
     acc = TensorConsensus(device="cpu", **kwarg)
     (name, want), = kwarg.items()
     assert getattr(acc, name) is want

@@ -92,6 +92,7 @@ def test_k1_kernel_equals_plain(card, W, P, S, values):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"member_ss_counts": 1,
                                       "strongly_see": 0,
+                                      "strongly_see_block": 0,
                                       "ecdsa_shamir": 0, "field_ops": 0}
     assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
     cpu = kernels.member_ss_counts(*(torch.from_numpy(a) for a in arrays))
@@ -183,6 +184,7 @@ def test_sweep_on_card_equals_cpu(card):
     got = voting.launch_sweep(win, card).cpu()
     assert kernels.launch_counts() == {"member_ss_counts": 1,
                                       "strongly_see": 0,
+                                      "strongly_see_block": 0,
                                       "ecdsa_shamir": 0, "field_ops": 0}
     assert torch.equal(got, voting.launch_sweep(win, torch.device("cpu")))
 
@@ -353,6 +355,7 @@ def test_k2_kernel_equals_plain(card, shape, values):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"member_ss_counts": 0,
                                       "strongly_see": 1,
+                                      "strongly_see_block": 0,
                                       "ecdsa_shamir": 0, "field_ops": 0}
     assert got.dtype == torch.bool
     assert tuple(got.shape) == (*shape[:-1], shape[-2])
@@ -402,6 +405,7 @@ def test_pipeline_on_card_equals_cpu_one_k2_launch_per_run(card):
         got = dag.run_pipeline(snap, return_matrices=True, device=card)
         assert kernels.launch_counts() == {"member_ss_counts": 0,
                                           "strongly_see": runs,
+                                          "strongly_see_block": 0,
                                           "ecdsa_shamir": 0, "field_ops": 0}
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -674,3 +678,137 @@ def test_failing_k3_launch_raises_out_of_the_core(card, monkeypatch):
         core._batch_prevalidate(_signed_events(2))
     assert kernels.launch_counts()["ecdsa_shamir"] == 0
     assert core.ingest_batch_verifies == 0
+
+
+# -- the mesh: rectangular K1, K2's block form, virtual shards -----------------
+
+# (B, V, W, P, S), B 0 for one window: the sharded sweep's shard shapes at
+# N = 4, V above W, ragged edges, and one large enough for the 128 tile
+K1_RECT_CARD_SHAPES = [
+    (0, 32, 128, 16, 1), (0, 64, 256, 64, 2), (0, 1, 37, 13, 3),
+    (0, 200, 70, 17, 2), (0, 1100, 4096, 5, 1), (3, 16, 48, 8, 2),
+    (4, 64, 256, 64, 2),
+]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("B,V,W,P,S", K1_RECT_CARD_SHAPES)
+def test_k1_rectangular_equals_plain(card, B, V, W, P, S, values):
+    """K1 of V voter rows against W candidates equals its plain version,
+    bit for bit, and its first V rows equal the square launch's; one
+    launch."""
+    lead = (B,) if B else ()
+    n = max(V, W)
+    if values == "random":
+        la, fd, member = _k1_inputs(n, P, S, seed=V + W + P)
+        if B:
+            la, fd, member = (np.stack([a] * B) for a in (la, fd, member))
+    else:
+        la, fd, member = k1_edge_inputs(n, P, S, V + W + P, *lead)
+    la_t, fd_t, member_t = (torch.from_numpy(a).to(card)
+                            for a in (la, fd, member))
+    a = la_t[..., :V, :].contiguous()
+    f = fd_t[..., :W, :].contiguous()
+    kernels.reset_launch_counts()
+    got = kernels.member_ss_counts(a, f, member_t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["member_ss_counts"] == 1
+    assert tuple(got.shape) == (*lead, S, V, W)
+    assert torch.equal(got, kernels.member_ss_counts_plain(a, f, member_t))
+    if V <= W:
+        square = kernels.member_ss_counts(la_t[..., :W, :].contiguous(), f,
+                                          member_t)
+        assert torch.equal(got, square[..., :V, :])
+
+
+def test_rectangular_shapes_take_both_tiles(card):
+    tiles = {kernels.member_ss_tile(W, S, max(B, 1), V=V)
+             for B, V, W, _P, S in K1_RECT_CARD_SHAPES}
+    assert tiles == {32, 128}
+    blocks = {kernels.strongly_see_block_tile(X, Y, max(B, 1))
+              for B, X, Y, *_rest in K2_BLOCK_CARD_SHAPES}
+    assert blocks == {32, 128}
+
+
+# (B, X, Y, P, ldo, col0), B 0 for one block: a sharded_strongly_see shard
+# and a ring step of (4096, 64) over 4 shards, a byte-wise epilogue (Y, ldo
+# and col0 off multiples of 4), the 128 tile at an offset, and a batch
+K2_BLOCK_CARD_SHAPES = [
+    (0, 1024, 4096, 64, 4096, 0), (0, 1024, 1024, 64, 4096, 2048),
+    (0, 37, 50, 6, 101, 3), (0, 2100, 2096, 9, 4200, 2100),
+    (3, 100, 60, 8, 64, 4),
+]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("B,X,Y,P,ldo,col0", K2_BLOCK_CARD_SHAPES)
+def test_k2_block_equals_plain(card, B, X, Y, P, ldo, col0, values):
+    """K2's block form writes exactly columns col0 .. col0 + Y of its
+    output, equal to the plain version's and to the square launch's
+    sub-block, and leaves every other byte; one launch."""
+    lead = (B,) if B else ()
+    n = max(X, Y)
+    if values == "random":
+        la_np, fd_np = _k2_inputs((*lead, n, P), seed=X + Y + P)
+        sm = 2 * P // 3 + 1
+    else:
+        la_np, fd_np = edge_coordinates((*lead, n, P), seed=X + Y + P)
+        sm = edge_super_majority(la_np, fd_np)
+    la, fd = torch.from_numpy(la_np).to(card), torch.from_numpy(fd_np).to(card)
+    a = la[..., :X, :].contiguous()
+    f = fd[..., :Y, :].contiguous()
+    before = torch.from_numpy(
+        np.random.RandomState(X).rand(*lead, X, ldo) < 0.5).to(card)
+    kernels.reset_launch_counts()
+    got = kernels.strongly_see_block(a, f, sm, before.clone(), col0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["strongly_see_block"] == 1
+    assert kernels.launch_counts()["strongly_see"] == 0
+    want = kernels.strongly_see_block_plain(a, f, sm, before.clone(), col0)
+    assert torch.equal(got, want)
+    square = kernels.strongly_see(la, fd, sm)
+    assert torch.equal(got[..., col0:col0 + Y], square[..., :X, :Y])
+
+
+def _mesh_replay_16(card, n_events=1024):
+    from chip_smoke import consensus_state, gossip_stream, replay
+
+    events, _keys, peers = gossip_stream(16, n_events, 5)
+    oracle, _ = replay(events, peers)
+    return events, peers, consensus_state(oracle)
+
+
+def test_mesh_sweep_on_virtual_shards(card):
+    """A 16-validator stream through TensorConsensus on a mesh of 4 shards
+    that all name the card (resident windows, syncs of 16 so that the delta
+    path runs) commits the oracle's blocks; K1 launches 4 times a sweep,
+    rectangular, on the card."""
+    from chip_smoke import mesh_replay
+
+    events, peers, want = _mesh_replay_16(card)
+    for n in (1, 4):
+        rec = mesh_replay("16", events, peers, want, n, sync=16)
+        assert all(V * n == W for V, W, _P, _S in rec["shapes"])
+
+
+def test_mesh_collectives_and_sharded_pipeline_on_card(card):
+    """sharded_strongly_see, ring_strongly_see, sharded_vote_counts and
+    sharded_batched_pipeline on 4 virtual shards equal K2, the plain tally
+    and batched_pipeline on the card."""
+    from chip_smoke import mesh_collectives
+
+    arrays, sm = batch_of_snapshots(8, 16, 512)
+    assert mesh_collectives(arrays, sm, 3) == {"sharded": 4, "ring": 16,
+                                               "pipeline": 4}
+
+
+def test_copro_lane_on_card(card, monkeypatch):
+    """Two validators on one 4-shard virtual mesh through the batcher's
+    coprocessor lane: each commits its oracle's blocks, a wave serves both,
+    and K1 launches 4 times a window."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "COPRO_EVENTS", 1024)
+    events, peers, want = _mesh_replay_16(card)
+    rec = chip_smoke.copro_lane(events, peers, want, 7)
+    assert rec["waves"] >= 1 and rec["launches"] == 4 * rec["windows"]

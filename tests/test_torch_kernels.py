@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from babble_tpu.ops.pallas_kernels import member_ss_counts_pallas
+from babble_tpu.ops.pallas_kernels import (
+    member_ss_counts_pallas,
+    strongly_see_pallas,
+)
 from babble_tpu_torch.ops import kernels
 
-from chip_smoke import k1_edge_inputs
+from chip_smoke import edge_coordinates, edge_super_majority, k1_edge_inputs
 
 INT32_MAX = np.int32(2**31 - 1)
 
@@ -74,8 +77,10 @@ def test_member_ss_counts_rejects_bad_inputs():
         kernels.member_ss_counts(la, fd.to(torch.float32), member)
     with pytest.raises(TypeError):
         kernels.member_ss_counts(la, fd, member.to(torch.uint8))
+    with pytest.raises(ValueError):  # P differs (V and W may)
+        kernels.member_ss_counts(la, fd[:, :4], member)
     with pytest.raises(ValueError):
-        kernels.member_ss_counts(la, fd[:8], member)
+        kernels.member_ss_counts(la, fd[None], member)
     with pytest.raises(ValueError):
         kernels.member_ss_counts(la, fd, member[:, :4])
     with pytest.raises(ValueError):
@@ -90,6 +95,7 @@ def test_member_ss_counts_cpu_takes_plain_version_without_launch():
     assert torch.equal(got, kernels.member_ss_counts_plain(la, fd, member))
     assert kernels.launch_counts() == {"member_ss_counts": 0,
                                       "strongly_see": 0,
+                                      "strongly_see_block": 0,
                                       "ecdsa_shamir": 0, "field_ops": 0}
 
 
@@ -194,3 +200,113 @@ def test_member_ss_counts_batched_rejects_bad_inputs():
         kernels.member_ss_counts(la, fd[:2], member)
     with pytest.raises(ValueError):
         kernels.member_ss_counts(la[None], fd[None], member[None])
+
+
+# -- the rectangular forms (the multi-device paths) ----------------------------
+
+# (W, P, S) of the full problem and the V voter rows [v0, v0 + V) a shard
+# takes: the sharded sweep's W/N rows at N = 2, 4 and 8, and a ragged one
+RECT_K1 = [(32, 16, 1, 0, 16), (64, 13, 2, 16, 16), (64, 40, 3, 56, 8),
+           (48, 17, 2, 5, 37)]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("W,P,S,v0,V", RECT_K1)
+def test_member_ss_counts_rectangular_matches_pallas_rows(W, P, S, v0, V,
+                                                          values):
+    """K1 of V voter rows against W candidates (V != W) equals rows
+    v0 .. v0 + V of the Pallas kernel's square result on the whole window
+    (interpreter mode) and numpy, the plain version and the CPU wrapper
+    alike; a batch of such blocks equals each block."""
+    make = _inputs if values == "random" else (
+        lambda W, P, S: k1_edge_inputs(W, P, S, seed=W + P + S))
+    la, fd, member = make(W, P, S)
+    want = _pallas(la, fd, member)[:, v0:v0 + V]
+    ref = ((la[v0:v0 + V, None, :] >= fd[None, :, :])[None]
+           & member[:, None, None, :]).sum(-1)
+    np.testing.assert_array_equal(ref, want)
+    t = [torch.from_numpy(a) for a in (la[v0:v0 + V].copy(), fd, member)]
+    got = kernels.member_ss_counts(*t)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (S, V, W)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(kernels.member_ss_counts_plain(*t).numpy(),
+                                  want)
+    batch = kernels.member_ss_counts(t[0][None].repeat(2, 1, 1),
+                                     t[1][None].repeat(2, 1, 1),
+                                     t[2][None].repeat(2, 1, 1))
+    assert tuple(batch.shape) == (2, S, V, W)
+    for b in range(2):
+        np.testing.assert_array_equal(batch[b].numpy(), want)
+
+
+# (E, P, x0, X, y0, Y, ldo, col0): a shard's rows against every candidate,
+# one ring step's column block written at an offset of a wider row, ragged
+RECT_K2 = [(64, 16, 16, 16, 0, 64, 64, 0), (64, 13, 0, 16, 48, 16, 64, 48),
+           (96, 6, 40, 24, 8, 37, 100, 60), (32, 40, 0, 32, 0, 32, 96, 33)]
+
+
+@pytest.mark.parametrize("values", ["random", "edge"])
+@pytest.mark.parametrize("E,P,x0,X,y0,Y,ldo,col0", RECT_K2)
+def test_strongly_see_block_matches_pallas_sub_block(E, P, x0, X, y0, Y, ldo,
+                                                     col0, values):
+    """K2's block form, la rows [x0, x0 + X) against fd rows [y0, y0 + Y)
+    written into columns col0 .. col0 + Y of a bool output with rows ldo
+    long, equals that sub-block of the Pallas kernel's square result on
+    the whole [E, P] coordinates (interpreter mode) and numpy, and leaves
+    every other column as it was; without an output it returns the
+    [X, Y] block."""
+    rng = np.random.RandomState(E + P + X + Y)
+    if values == "random":
+        la = rng.randint(-1, 40, size=(E, P)).astype(np.int32)
+        fd = rng.randint(0, 40, size=(E, P)).astype(np.int32)
+        fd[rng.rand(E, P) < 0.25] = INT32_MAX
+        sm = 2 * P // 3 + 1
+    else:
+        la, fd = edge_coordinates((E, P), seed=E * P)
+        sm = edge_super_majority(la, fd)
+    full = np.asarray(strongly_see_pallas(jnp.asarray(la), jnp.asarray(fd),
+                                          sm, interpret=True))
+    want = full[x0:x0 + X, y0:y0 + Y]
+    ref = (la[x0:x0 + X, None, :] >= fd[None, y0:y0 + Y, :]).sum(-1) >= sm
+    np.testing.assert_array_equal(ref, want)
+    a = torch.from_numpy(la[x0:x0 + X].copy())
+    f = torch.from_numpy(fd[y0:y0 + Y].copy())
+    before = torch.from_numpy(rng.rand(X, ldo) < 0.5)
+    for fn in (kernels.strongly_see_block, kernels.strongly_see_block_plain):
+        out = before.clone()
+        assert fn(a, f, sm, out, col0) is out
+        np.testing.assert_array_equal(out[:, col0:col0 + Y].numpy(), want)
+        rest = np.ones(ldo, bool)
+        rest[col0:col0 + Y] = False
+        np.testing.assert_array_equal(out[:, rest].numpy(),
+                                      before[:, rest].numpy())
+        np.testing.assert_array_equal(fn(a, f, sm).numpy(), want)
+    batch = kernels.strongly_see_block(a[None].repeat(3, 1, 1),
+                                       f[None].repeat(3, 1, 1), sm)
+    assert tuple(batch.shape) == (3, X, Y)
+    for b in range(3):
+        np.testing.assert_array_equal(batch[b].numpy(), want)
+
+
+def test_strongly_see_block_refuses_what_it_cannot_take():
+    a = torch.zeros((8, 4), dtype=torch.int32)
+    f = torch.zeros((16, 4), dtype=torch.int32)
+    out = torch.zeros((8, 32), dtype=torch.bool)
+    kernels.strongly_see_block(a, f, 1, out, 16)  # columns 16..32 fit
+    with pytest.raises(ValueError, match="fit"):
+        kernels.strongly_see_block(a, f, 1, out, 17)
+    with pytest.raises(ValueError, match="fit"):
+        kernels.strongly_see_block(a, f, 1, out, -1)
+    with pytest.raises(ValueError, match="offset"):
+        kernels.strongly_see_block(a, f, 1, None, 4)
+    with pytest.raises(TypeError):
+        kernels.strongly_see_block(a, f, 1, out.int(), 0)
+    with pytest.raises(ValueError):
+        kernels.strongly_see_block(a, f, 1, out[:4], 0)  # X differs
+    with pytest.raises(ValueError):
+        kernels.strongly_see_block(a, f[:, :3], 1)  # P differs
+    with pytest.raises(TypeError):
+        kernels.strongly_see_block(a.long(), f, 1)
+    # the square form keeps its square contract
+    with pytest.raises(ValueError):
+        kernels.strongly_see(a, f, 1)

@@ -202,11 +202,19 @@ def test_accelerator_without_card_refuses_to_start(monkeypatch):
         nodes[0].init()
 
 
-def test_unported_modes_refuse_to_start(monkeypatch):
-    nodes, _ = make_nodes(1, InmemNetwork(), init=False, accelerator=True,
-                          accelerator_device="cpu", accelerator_mesh=2)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        nodes[0].init()
+def test_unported_modes_refuse_to_start(monkeypatch, caplog):
+    """--accelerator-mesh follows the JAX node's rule: a size that is not a
+    power of two, an offload on the CPU, or more cards than there are, logs
+    a warning and the node starts with its sweeps on one device."""
+    for size, why in ((2, "unavailable"), (3, "not a power of two")):
+        nodes, _ = make_nodes(1, InmemNetwork(), init=False,
+                              accelerator=True, accelerator_device="cpu",
+                              accelerator_mesh=size)
+        caplog.clear()
+        with caplog.at_level("WARNING"):
+            nodes[0].init()
+        assert nodes[0].core.hg.accel.mesh is None
+        assert any(why in r.getMessage() for r in caplog.records), size
     # device signature verification is ported: asked for on the CPU, the
     # node starts and its sync chunks take the host batch verifier
     monkeypatch.setenv("BABBLE_DEVICE_VERIFY", "1")

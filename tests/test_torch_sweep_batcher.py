@@ -33,6 +33,7 @@ from babble_tpu.hashgraph import Event, Hashgraph, InmemStore
 from babble_tpu_torch.hashgraph.accel import TensorConsensus
 from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
 from babble_tpu_torch.ops import voting
+from babble_tpu_torch.parallel import consensus_mesh
 
 from tests.test_accel import BUILDERS, _ordered_events
 from tests.test_torch_accel import _assert_same, _jax_replay
@@ -296,6 +297,13 @@ def test_batcher_sweep_time_is_the_kernel_stage(pipeline):
 
 
 def test_batcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _bare_batcher().submit(_two_windows()[0], device="cpu",
-                               mesh=object())
+    """A mesh submission rides the coprocessor lane
+    (tests/test_torch_coprocessor.py); one whose shard devices are not of
+    the submission's device type is refused."""
+    mesh = consensus_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    with pytest.raises(ValueError, match="differ"):
+        _bare_batcher().submit(_two_windows()[0], device="cpu", mesh=mesh)
+    t = _bare_batcher().submit(_two_windows()[0], device="cpu",
+                               mesh=consensus_mesh(2, devices=[CPU] * 2),
+                               owner="a")
+    assert t.mesh is not None and t.owner == "a"
