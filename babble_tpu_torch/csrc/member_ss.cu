@@ -71,21 +71,22 @@
 namespace {
 
 template <int B, int NS>
-__global__ void __launch_bounds__(bt::kThreads, (bt::kBlocksPerSM<B, NS>))
+__global__ void __launch_bounds__(bt::kThreads,
+                                  (bt::kBlocksPerSM<bt::Tile<B>, NS>))
     member_ss_kernel(const int32_t* __restrict__ la,
                      const int32_t* __restrict__ fd,
                      const uint8_t* __restrict__ member,
                      int32_t* __restrict__ out, int V, int W, int P,
                      int rows_la, int rows_fd, int slots, int groups) {
   using T = bt::Tile<B>;
-  __shared__ __align__(16) bt::Ring<B, NS> ring;
+  __shared__ __align__(16) bt::Ring<T, NS> ring;
 
   const int s0 = blockIdx.z * NS;  // of the batch's `slots`
   const int b = blockIdx.z / groups;  // the window
   const int v0 = blockIdx.y * B;
   const int w0 = blockIdx.x * B;
   float acc[NS][T::kTM][T::kTN];
-  bt::count_tile<B, NS, true>(ring, la, fd, member, rows_la, rows_fd, P,
+  bt::count_tile<T, NS, true>(ring, la, fd, member, rows_la, rows_fd, P,
                               slots, s0, b * V + v0, b * W + w0, acc);
 
   const int tx = threadIdx.x % T::kThreadsX;

@@ -5,27 +5,46 @@
 // la[x, p] >= fd[y, p] over row-major int32 [n, P] coordinate matrices. What
 // the loop does, and why:
 //
-// - Register tiles. A block of 256 threads covers a B x B output tile, each
-//   thread a TM x TN tile of counters: B = 128 with 8 x 8 per thread for
-//   large outputs, B = 32 with 1 x 4 per thread for small ones (Tile<B>).
+// - Register tiles. A block of 256 threads covers a BM x BN output tile, each
+//   thread a TM x TN tile of counters (TileShape). Four tiles:
+//     Tile32      32 x 32,  1 x 4 a thread: many blocks for small outputs;
+//     Tile64      64 x 64,  4 x 4;
+//     Tile64x128  64 x 128, 4 x 8: the tile between, half the 128 tile's
+//                 rows, so that a ring step or an 8-shard split of a
+//                 4096-row window still makes a block an SM or more;
+//     Tile128     128 x 128, 8 x 8: the fewest shared loads a compare-add.
 //   For one p a thread reads its TM la words and TN fd words with 4- or
 //   16-byte shared loads and does TM * TN compare-adds: a staged word feeds
-//   several compare-adds, so shared-memory loads do not set the pace.
+//   several compare-adds, so shared-memory loads do not set the pace (TM/4
+//   + TN/4 loads for TM * TN compare-adds: 4 for 64 on the 128 tile, 3 for
+//   32 on 64 x 128, 2 for 16 on 64 x 64, 2 for 4 on the 32 tile). K1 takes
+//   Tile32 and Tile128 (Tile<32>, Tile<128>, by tile_side below); K2 and
+//   its block form all four, by a rule read off a table measured on the
+//   card (strongly_see.cu).
 // - P-major staging. The peer axis streams through a ring of kChunk-peer
-//   chunks in shared memory laid out [p][row], transposed from the [n, P] layout
-//   during the copy; each [p] row is padded to B + 4 words. A thread's four
-//   columns (or rows) at one p are one aligned 16-byte load, and the column
-//   groups of a warp fall on distinct banks.
+//   chunks in shared memory laid out [p][row], transposed from the [n, P]
+//   layout during the copy; each [p] row is padded to BM + 4 (la) or
+//   BN + 4 (fd) words. A thread's four columns (or rows) at one p are one
+//   aligned 16-byte load, and the column groups of a warp fall on distinct
+//   banks.
 // - Copy and compute overlap. Every word is copied by a 4-byte cp.async
 //   (which may scatter into the transposed layout), so later chunks load
-//   while the current one is compared (Tile<B> sets the stages). Shared
+//   while the current one is compared (the tile sets the stages). Shared
 //   memory does not grow with P.
 // - An exact compare-accumulate. setp.ge.s32 (ISETP, on the integer pipe)
 //   and an add of the peer's weight predicated on it (FADD, on the FMA
 //   pipe): two instructions per compare-add, on two pipes. The compare is
 //   the signed 32-bit one, exact for every pair of int32 values; the float
 //   counter is exact while it stays at or below 2^24, which the wrappers'
-//   limit on P keeps (ops/kernels.py).
+//   limit on P keeps (ops/kernels.py). An H100 SM issues one instruction a
+//   clock on each of its four schedulers and has 64 integer lanes, so both
+//   the issue and the ISETP's pipe cap the loop at 64 compare-adds an SM
+//   and clock: 16.7 T/s at 1.98 GHz, half the 33.5 T/s that the 67 TFLOP/s
+//   yardstick allows at two operations a compare-add. Moving a share of
+//   the compares to another pipe (an exact FP64 DSETP on int32 values
+//   widened to double) would free integer lanes but not issue slots, and
+//   would double the operand registers, which the 128 tile (112-116 of its
+//   128) does not have: it is not done.
 // - Sentinels. Rows past n are staged as la = -1 and fd = INT32_MAX, and so
 //   are peers past P; la = -1 never reaches fd = INT32_MAX, so a padded peer
 //   never counts and the ragged edges need no padding in memory.
@@ -50,64 +69,83 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 16;
 constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM
 
-// A B x B output tile over 256 threads, TM x TN counters each, and a ring of
-// kStages chunks, compared kUnroll peers to a loop turn.
+// A BM x BN output tile over 256 threads, TM x TN counters each, a ring of
+// kStages chunks, compared kUnroll peers to a loop turn, and compiled for
+// Blocks blocks an SM (one slot a block).
 // Thread (ty, tx) = (t / kThreadsX, t % kThreadsX) owns rows row(ty, i),
 // i < TM, and columns col(tx, j), j < TN: runs of four at stride
-// B / (TN / 4) (and likewise for rows when TM >= 4).
-template <int B, int TM, int TN, int Stages, int Unroll>
+// BN / (TN / 4) (and likewise for rows when TM >= 4).
+template <int BM, int BN, int TM, int TN, int Stages, int Unroll,
+          int Blocks>
 struct TileShape {
-  static constexpr int kB = B;
+  static constexpr int kBM = BM;
+  static constexpr int kBN = BN;
   static constexpr int kTM = TM;
   static constexpr int kTN = TN;
   static constexpr int kStages = Stages;
   static constexpr int kUnroll = Unroll;
-  static constexpr int kThreadsX = B / TN;
-  static constexpr int kStride = B + 4;  // words per staged [p] row
-  static_assert((B / TM) * (B / TN) == kThreads, "256 threads a block");
+  static constexpr int kBlocks = Blocks;
+  static constexpr int kThreadsX = BN / TN;
+  static constexpr int kStrideM = BM + 4;  // words per staged la [p] row
+  static constexpr int kStrideN = BN + 4;  // words per staged fd [p] row
+  static_assert((BM / TM) * (BN / TN) == kThreads, "256 threads a block");
   static_assert(TN % 4 == 0 && (TM < 4 || TM % 4 == 0), "runs of four");
-  static_assert(B % (kThreads / kChunk) == 0, "whole staging passes");
+  static_assert(BM % (kThreads / kChunk) == 0 &&
+                    BN % (kThreads / kChunk) == 0,
+                "whole staging passes");
 
   static __device__ __forceinline__ int row(int ty, int i) {
     if constexpr (TM < 4) {
       return ty * TM + i;
     } else {
-      return (i / 4) * (B / (TM / 4)) + ty * 4 + i % 4;
+      return (i / 4) * (BM / (TM / 4)) + ty * 4 + i % 4;
     }
   }
   static __device__ __forceinline__ int col(int tx, int j) {
-    return (j / 4) * (B / (TN / 4)) + tx * 4 + j % 4;
+    return (j / 4) * (BN / (TN / 4)) + tx * 4 + j % 4;
   }
 };
 
-// The 128 tile: 8 x 8 counters a thread, whose chunk takes long enough to
-// compare that two stages hide the next load. The 32 tile: 1 x 4 counters
-// a thread, its chunk fully unrolled so that loop overhead weighs less
-// against so few counters, and four stages, so that a 64-peer axis is in
-// flight at once.
+// The 32 tile: 1 x 4 counters a thread, its chunk fully unrolled so that
+// loop overhead weighs less against so few counters, and four stages, so
+// that a 64-peer axis is in flight at once; 4 blocks an SM. The 128 tile:
+// 8 x 8 counters a thread (112-116 registers), whose chunk takes long
+// enough to compare that two stages hide the next load; 2 blocks an SM.
+// The tiles between compare a chunk in a half (64 x 128: 80 registers, 3
+// blocks an SM, three stages) or a quarter (64 x 64: 64 registers, 4
+// blocks an SM, four stages) of the 128 tile's time, so they keep more of
+// the peer axis in flight. None spills.
+struct Tile32 : TileShape<32, 32, 1, 4, 4, 16, 4> {};
+struct Tile64 : TileShape<64, 64, 4, 4, 4, 16, 4> {};
+struct Tile64x128 : TileShape<64, 128, 4, 8, 3, 8, 3> {};
+struct Tile128 : TileShape<128, 128, 8, 8, 2, 4, 2> {};
+
+// K1's tiles by side.
 template <int B>
 struct Tile;
 template <>
-struct Tile<32> : TileShape<32, 1, 4, 4, 16> {};
+struct Tile<32> : Tile32 {};
 template <>
-struct Tile<128> : TileShape<128, 8, 8, 2, 4> {};
+struct Tile<128> : Tile128 {};
 
-// Blocks per SM each instantiation is compiled for: a thread of the 128
-// tile holds 64 counters per slot.
-template <int B, int NS>
-constexpr int kBlocksPerSM = B == 32 ? 4 : (NS == 1 ? 2 : 1);
+// Blocks per SM an instantiation with NS slots a block is compiled for:
+// the tile's own, but one where a thread holds more than 64 counters (two
+// slots of the 128 tile).
+template <class T, int NS>
+constexpr int kBlocksPerSM = T::kTM * T::kTN * NS > 64 ? 1 : T::kBlocks;
 
 // The ring of one block: la and fd chunks, and NS weight rows.
-template <int B, int NS>
+template <class T, int NS>
 struct Ring {
-  int32_t la[Tile<B>::kStages][kChunk][Tile<B>::kStride];
-  int32_t fd[Tile<B>::kStages][kChunk][Tile<B>::kStride];
-  float weight[Tile<B>::kStages][NS][kChunk];
+  int32_t la[T::kStages][kChunk][T::kStrideM];
+  int32_t fd[T::kStages][kChunk][T::kStrideN];
+  float weight[T::kStages][NS][kChunk];
 };
 
-// The tile side for a [rows, cols] output in `groups` grid layers: the 128
+// K1's tile side for a [rows, cols] output in `groups` grid layers: the 128
 // tile where it still gives two blocks per SM, else the 32 tile, so that
-// small outputs spread over the SMs.
+// small outputs spread over the SMs. (K2 has its own rule, in
+// strongly_see.cu.)
 inline int tile_side(int rows, int cols, int groups) {
   const long long t = static_cast<long long>((rows + 127) / 128) *
                       ((cols + 127) / 128);
@@ -130,31 +168,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stage rows [r0, r0 + B) and peers [p0, p0 + kChunk) of `src` ([n, P],
-// row-major) into `dst` ([kChunk][kStride]), transposed. Words outside the
+// Stage rows [r0, r0 + Rows) and peers [p0, p0 + kChunk) of `src` ([n, P],
+// row-major) into `dst` ([kChunk][Stride]), transposed. Words outside the
 // matrix hold `fill`. Thread t copies peer t % kChunk of rows t / kChunk +
 // 16 k, so consecutive threads read consecutive peers of a row. A chunk
 // inside the matrix on both axes (every chunk of a block whose rows and
 // peers are all there; uniform across the block) skips the bounds checks.
-template <int B>
+template <int Rows, int Stride>
 __device__ __forceinline__ void stage_chunk(
-    int32_t (*dst)[Tile<B>::kStride], const int32_t* __restrict__ src,
+    int32_t (*dst)[Stride], const int32_t* __restrict__ src,
     int n, int P, int r0, int p0, int32_t fill) {
   constexpr int kRowStep = kThreads / kChunk;
   const int p = threadIdx.x % kChunk;
   const int r = threadIdx.x / kChunk;
   const int col = p0 + p;
   const size_t step = static_cast<size_t>(kRowStep) * P;
-  if (r0 + B <= n && p0 + kChunk <= P) {
+  if (r0 + Rows <= n && p0 + kChunk <= P) {
     const int32_t* from = src + static_cast<size_t>(r0 + r) * P + col;
 #pragma unroll
-    for (int k = 0; k < B / kRowStep; ++k) {
+    for (int k = 0; k < Rows / kRowStep; ++k) {
       cp_async4(&dst[p][r + k * kRowStep], from + k * step);
     }
     return;
   }
 #pragma unroll
-  for (int k = 0; k < B / kRowStep; ++k) {
+  for (int k = 0; k < Rows / kRowStep; ++k) {
     const int row = r0 + r + k * kRowStep;
     if (row < n && col < P) {
       cp_async4(&dst[p][r + k * kRowStep],
@@ -199,13 +237,12 @@ __device__ __forceinline__ void ge_add(float& acc0, float& acc1, int32_t a,
 // voter rows against every candidate, and a ring step's column block, are
 // not), each staged with its own sentinel past its own rows. Every thread
 // of the block must call it.
-template <int B, int NS, bool kWeighted>
+template <class T, int NS, bool kWeighted>
 __device__ __forceinline__ void count_tile(
-    Ring<B, NS>& ring, const int32_t* __restrict__ la,
+    Ring<T, NS>& ring, const int32_t* __restrict__ la,
     const int32_t* __restrict__ fd, const uint8_t* __restrict__ member,
     int n_la, int n_fd, int P, int S, int s0, int x0, int y0,
-    float (&acc)[NS][Tile<B>::kTM][Tile<B>::kTN]) {
-  using T = Tile<B>;
+    float (&acc)[NS][T::kTM][T::kTN]) {
   static_assert(NS == 1 || (kWeighted && NS == 2), "one or two slots");
   const int tx = threadIdx.x % T::kThreadsX;
   const int ty = threadIdx.x / T::kThreadsX;
@@ -231,8 +268,10 @@ __device__ __forceinline__ void count_tile(
   };
   auto stage = [&](int c) {
     const int buf = c % T::kStages;
-    stage_chunk<B>(ring.la[buf], la, n_la, P, x0, c * kChunk, -1);
-    stage_chunk<B>(ring.fd[buf], fd, n_fd, P, y0, c * kChunk, INT_MAX);
+    stage_chunk<T::kBM, T::kStrideM>(ring.la[buf], la, n_la, P, x0,
+                                     c * kChunk, -1);
+    stage_chunk<T::kBN, T::kStrideN>(ring.fd[buf], fd, n_fd, P, y0,
+                                     c * kChunk, INT_MAX);
   };
 
   const int chunks = (P + kChunk - 1) / kChunk;

@@ -115,9 +115,9 @@ def build() -> str:
             ctypes.c_void_p,
         ]
         lib.bt_strongly_see.restype = ctypes.c_int
-        lib.bt_strongly_see_block.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 7 + [ctypes.c_void_p]
-        lib.bt_strongly_see_block.restype = ctypes.c_int
+        lib.bt_strongly_see_block_at.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.bt_strongly_see_block_at.restype = ctypes.c_int
         lib.bt_ecdsa_shamir.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int, ctypes.c_void_p,
         ]
@@ -129,11 +129,10 @@ def build() -> str:
             ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
         lib.bt_field_ops.restype = ctypes.c_int
         lib.bt_member_ss_tile.argtypes = [ctypes.c_int] * 4
-        lib.bt_strongly_see_tile.argtypes = [ctypes.c_int] * 2
         lib.bt_strongly_see_block_tile.argtypes = [ctypes.c_int] * 3
         lib.bt_ecdsa_group.argtypes = [ctypes.c_int]
-        for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_tile,
-                   lib.bt_strongly_see_block_tile, lib.bt_ecdsa_group):
+        for fn in (lib.bt_member_ss_tile, lib.bt_strongly_see_block_tile,
+                   lib.bt_ecdsa_group):
             fn.restype = ctypes.c_int
         _lib = lib
     return so
@@ -268,6 +267,9 @@ for _key in ("CPU", "CUDA"):
 
 #: largest peer axis, as for K1
 STRONGLY_SEE_MAX_P = MEMBER_SS_MAX_P
+#: the tiles of K2 and its block form, rows x columns of output a block,
+#: by the id of the C entries (csrc/strongly_see.cu)
+K2_TILES = ("32x32", "64x64", "64x128", "128x128")
 #: rows of la the plain version compares at once, bounding its
 #: [rows, E, P] intermediate
 _PLAIN_ROWS = 512
@@ -395,8 +397,21 @@ def strongly_see_block(la: torch.Tensor, fd: torch.Tensor,
     bool ``out`` ([..., X, ldo], contiguous; a new [..., X, Y] tensor where
     None), so that one ring step fills its column block in place. Returns
     ``out``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream of their device. ``strongly_see`` is the
-    square form."""
+    kernel on the current stream of their device, at the tile
+    ``strongly_see_block_tile`` names. ``strongly_see`` is the square
+    form."""
+    return _strongly_see_block_at(None, la, fd, super_majority, out, col0)
+
+
+def _strongly_see_block_at(tile: Optional[str], la: torch.Tensor,
+                           fd: torch.Tensor, super_majority: int,
+                           out: Optional[torch.Tensor] = None,
+                           col0: int = 0) -> torch.Tensor:
+    """``strongly_see_block`` at ``tile`` (one of K2_TILES), or at the tile
+    the C entry picks where None: the hook by which the card tests and
+    chip_smoke hold every tile against the plain version, and time it."""
+    if tile is not None and tile not in K2_TILES:
+        raise ValueError(f"tile must be one of {K2_TILES}, got {tile!r}")
     X, Y, ldo = _check_block(la, fd, out, col0)
     sm = int(super_majority)
     if la.device.type == "cpu":
@@ -427,9 +442,9 @@ def strongly_see_block(la: torch.Tensor, fd: torch.Tensor,
         build()
     with torch.cuda.device(la.device):
         stream = torch.cuda.current_stream(la.device).cuda_stream
-        rc = _lib.bt_strongly_see_block(
-            la.data_ptr(), fd.data_ptr(), out.data_ptr(), B, X, Y, P, sm,
-            ldo, col0, stream,
+        rc = _lib.bt_strongly_see_block_at(
+            -1 if tile is None else K2_TILES.index(tile), la.data_ptr(),
+            fd.data_ptr(), out.data_ptr(), B, X, Y, P, sm, ldo, col0, stream,
         )
     _check_launch(rc, "strongly_see_block")
     with _count_lock:
@@ -450,20 +465,18 @@ def member_ss_tile(W: int, S: int, B: int = 1,
     return _lib.bt_member_ss_tile(B, W if V is None else V, W, S)
 
 
-def strongly_see_tile(E: int, B: int) -> int:
-    """Side of the output tile (32 or 128) K2 takes at (E, B); builds the
-    library if needed."""
-    if _lib is None:
-        build()
-    return _lib.bt_strongly_see_tile(E, B)
+def strongly_see_tile(E: int, B: int) -> str:
+    """The tile (one of K2_TILES) K2 takes at (E, B); builds the library if
+    needed."""
+    return strongly_see_block_tile(E, E, B)
 
 
-def strongly_see_block_tile(X: int, Y: int, B: int = 1) -> int:
-    """Side of the output tile (32 or 128) K2's block form takes for B
-    blocks of X rows against Y columns; builds the library if needed."""
+def strongly_see_block_tile(X: int, Y: int, B: int = 1) -> str:
+    """The tile (one of K2_TILES) K2's block form takes for B blocks of X
+    rows against Y columns; builds the library if needed."""
     if _lib is None:
         build()
-    return _lib.bt_strongly_see_block_tile(X, Y, B)
+    return K2_TILES[_lib.bt_strongly_see_block_tile(X, Y, B)]
 
 
 # =============================================================================

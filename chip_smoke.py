@@ -92,18 +92,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shards and every per-shard kernel launch runs on it (no NVLink is
    measured). Rectangular K1 (V voter rows against W candidates, the
    sharded sweep's shard shapes at N = 4, and a batch) and K2's block form
-   (a sharded_strongly_see shard at (4096, 64), a ring step's block at
-   column 2048 of a 4096 row) against their plain versions on random and
-   edge coordinates, with times, bounds and shares; phases 3 and 4's
+   at the tile its C entry picks (K2_BLOCK_SHAPES: sharded_strongly_see
+   shards and ring steps of (4096, 64) at 2, 4 and 8 shards, a shard of
+   (4096, 16), and the sharded pipeline's batched shards) against their
+   plain versions on random and edge coordinates, with times, bounds and
+   shares; phases 3 and 4's
    streams through TensorConsensus(mesh=...) at N = 1 and 4 (resident, no
    batcher, min_window 0; the 16-validator one in syncs of 32, beside a
    single-device arm, so that the delta path runs), equal to those phases'
    oracles, with no mesh fallback, delta sweeps, K1 launches = N x sweeps,
    the pad rows and the dispatch and device ms per sweep against the
    single device; the batcher's coprocessor lane (two validators on one
-   4-shard mesh, one wave serving both); and the collectives and
-   sharded_batched_pipeline at (dp 2, sp 2) equal to their single-device
-   counterparts.
+   4-shard mesh, one wave serving both); and the collectives on 2, 4 and 8
+   shards and sharded_batched_pipeline at (dp 2, sp 2) and (dp 1, sp 4)
+   equal to their single-device counterparts, with K2's block-form
+   launches counted by shape.
 
 For each live path (the replays of phases 3 and 4, and the node cluster of
 phase 8: its batched waves and its per-node sweeps), K1 is also held
@@ -115,11 +118,18 @@ last is the kernels' JSON record; the last line is
 
     python3 chip_smoke.py --ab dist/old dist/new dist/new dist/old
 
-runs phase 2's timings only, in each given checkout of the repo in turn
-(each builds its own kernels in a fresh process), and exits: two commits
-compared on one card; K3 at every B of VERIFY_TIMED_B (1 to 16384) only
-where every tree has it. ``--nodes-ab`` does the same with phase 8's node
-cluster.
+runs phase 2's timings and K2's block form at K2_BLOCK_SHAPES only, in
+each given checkout of the repo in turn (each builds its own kernels in a
+fresh process), and exits: two commits compared on one card; K3 at every B
+of VERIFY_TIMED_B (1 to 16384) only where every tree has it.
+``--nodes-ab`` does the same with phase 8's node cluster.
+
+    python3 chip_smoke.py --k2-tiles
+
+holds every tile of K2's block form against the plain version and times
+it at K2_BLOCK_SHAPES and at the square K2 rows, prints which tile is
+fastest and which the C entry picks, and the SASS instruction counts of
+each K2 kernel, and exits.
 """
 
 from __future__ import annotations
@@ -2554,10 +2564,24 @@ MESH_N = 4
 # 128-witness bucket of 16 validators and a 256 one of 64 with two slots;
 # and one batched launch (B, V, W, P, S)
 K1_RECT_SHAPES = [(32, 128, 16, 1), (64, 256, 64, 2), (4, 64, 256, 64, 2)]
-# K2's block form (X, Y, P, ldo, col0): a sharded_strongly_see shard of
-# (4096, 64) over 4 shards, and one ring step's block written at column 2048
-# of a 4096-wide row
-K2_BLOCK_SHAPES = [(1024, 4096, 64, 4096, 0), (1024, 1024, 64, 4096, 2048)]
+# K2's block form (B, X, Y, P, ldo, col0) at the shapes the collectives
+# launch it at on a mesh of n = 2, 4 and 8 shards: a sharded_strongly_see
+# shard of the (4096, 64) window, and of (4096, 16) at n 4; one ring step's
+# block, written at a column offset of a 4096-wide row; a shard of
+# sharded_batched_pipeline on phase 6's batch of 8 (512, 16) windows at
+# (dp 2, sp 2) and (dp 1, sp 4). Each with the path and n that launch it.
+K2_BLOCK_SHAPES = [
+    ((1, 2048, 4096, 64, 4096, 0), "sharded_strongly_see shard, n 2"),
+    ((1, 1024, 4096, 64, 4096, 0), "sharded_strongly_see shard, n 4"),
+    ((1, 512, 4096, 64, 4096, 0), "sharded_strongly_see shard, n 8"),
+    ((1, 1024, 4096, 16, 4096, 0),
+     "sharded_strongly_see shard of (4096, 16), n 4"),
+    ((1, 2048, 2048, 64, 4096, 2048), "ring step, n 2"),
+    ((1, 1024, 1024, 64, 4096, 2048), "ring step, n 4"),
+    ((1, 512, 512, 64, 4096, 3584), "ring step, n 8"),
+    ((4, 256, 512, 16, 512, 0), "sharded_batched_pipeline shard, dp 2 sp 2"),
+    ((8, 128, 512, 16, 512, 0), "sharded_batched_pipeline shard, dp 1 sp 4"),
+]
 # the 16-validator mesh replays sync 32 events at a time: a 64-event sync
 # outgrows the resident delta bucket (max(32, E/8) rows) and uploads the
 # whole window, so that phase 3 never takes the delta path
@@ -2614,44 +2638,61 @@ def check_k1_rect(shape, seed: int) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_k2_block(shape, seed: int) -> dict:
-    """K2's block form, la [X, P] against fd [Y, P] into columns col0 ..
-    col0 + Y of a [X, ldo] output, equal to its plain version (the whole
-    output, the columns it must not touch included) on random and on
-    edge-value coordinates, and timed."""
+def k2_block_inputs(shape, seed: int) -> list:
+    """K2's block form at ``shape`` (B, X, Y, P, ldo, col0): (la, fd, sm,
+    out) on random coordinates and on edge-value coordinates (la [X, P]
+    against fd [Y, P], or a batch of B), with ``out`` a random bool [X,
+    ldo] (or [B, X, ldo]) whose columns outside the block must survive."""
     import numpy as np
+    import torch
+
+    B, X, Y, P, ldo, col0 = shape
+    n = max(X, Y)
+    lead = (B,) if B > 1 else ()
+    la, fd = k2_inputs(B, n, P, seed)
+    la_e, fd_e = (torch.from_numpy(a).cuda()
+                  for a in edge_coordinates((*lead, n, P), seed))
+    sm_e = edge_super_majority(la_e.cpu().numpy(), fd_e.cpu().numpy())
+    out = torch.from_numpy(
+        np.random.RandomState(seed).rand(*lead, X, ldo) < 0.5).cuda()
+    return [(a[..., :X, :].contiguous(), f[..., n - Y:, :].contiguous(), t,
+             out)
+            for a, f, t in ((la, fd, 2 * P // 3 + 1), (la_e, fd_e, sm_e))]
+
+
+def check_k2_block(shape, seed: int, tile=None, inputs=None,
+                   plain: bool = True) -> dict:
+    """K2's block form at ``shape`` (B, X, Y, P, ldo, col0) and at ``tile``
+    (one of ``kernels.K2_TILES``; the tile the C entry picks where None)
+    equal to its plain version (the whole output, the columns it must not
+    touch included) on random and on edge-value coordinates, and timed on
+    the random ones (its plain version too, with ``plain``)."""
     import torch
 
     from babble_tpu_torch.ops import kernels
 
-    X, Y, P, ldo, col0 = shape
-    n = max(X, Y)
-    sm = 2 * P // 3 + 1
-    la, fd = k2_inputs(1, n, P, seed)
-    la_e, fd_e = (torch.from_numpy(a).cuda()
-                  for a in edge_coordinates((n, P), seed))
-    sm_e = edge_super_majority(la_e.cpu().numpy(), fd_e.cpu().numpy())
-    for a, f, t in ((la, fd, sm), (la_e, fd_e, sm_e)):
-        a, f = a[:X].contiguous(), f[n - Y:].contiguous()
-        before = torch.from_numpy(
-            np.random.RandomState(seed).rand(X, ldo) < 0.5).cuda()
-        got = kernels.strongly_see_block(a, f, t, before.clone(), col0)
+    B, X, Y, P, ldo, col0 = shape
+    inputs = inputs or k2_block_inputs(shape, seed)
+    for a, f, t, before in inputs:
+        got = kernels._strongly_see_block_at(tile, a, f, t, before.clone(),
+                                             col0)
         want = kernels.strongly_see_block_plain(a, f, t, before.clone(), col0)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"K2 block {shape}: "
+            raise AssertionError(f"K2 block {shape} tile {tile}: "
                                  f"{int((got != want).sum())} entries differ "
                                  "from plain")
-    a, f = la[:X].contiguous(), fd[n - Y:].contiguous()
-    out = torch.zeros((X, ldo), dtype=torch.bool, device="cuda")
-    ms = time_on_device(lambda: kernels.strongly_see_block(a, f, sm, out,
-                                                           col0))
+    a, f, sm, before = inputs[0]
+    out = before.clone()
+    ms = time_on_device(lambda: kernels._strongly_see_block_at(
+        tile, a, f, sm, out, col0))
     plain_ms = time_on_device(
         lambda: kernels.strongly_see_block_plain(a, f, sm, out, col0),
-        reps=20)
-    bound_ms, bound_by = k2_bound_ms(1, X, P, Y)
+        reps=20) if plain else None
+    bound_ms, bound_by = k2_bound_ms(B, X, P, Y)
     return {"shape": list(shape), "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tile": tile or kernels.strongly_see_block_tile(X, Y, B)}
 
 
 def mesh_replay(label, events, peers, want, n: int, peer_sets=(),
@@ -2783,12 +2824,14 @@ def copro_lane(events_a, peers_a, want_a, seed: int) -> dict:
     return {"waves": waves, "windows": windows, "launches": launches}
 
 
-def mesh_collectives(batch_arrays, batch_sm, seed: int) -> dict:
-    """On a virtual mesh of MESH_N shards: sharded_strongly_see and
-    ring_strongly_see equal to K2 at (4096, 64), sharded_vote_counts to the
-    plain tally, and sharded_batched_pipeline at (dp 2, sp 2) to
+def mesh_collectives(batch_arrays, batch_sm, seed: int) -> Counter:
+    """On virtual meshes of 2, 4 and 8 shards: sharded_strongly_see and
+    ring_strongly_see equal to K2 at (4096, 64), sharded_strongly_see at 4
+    shards to K2 at (4096, 16), sharded_vote_counts to the plain tally, and
+    sharded_batched_pipeline at (dp 2, sp 2) and (dp 1, sp 4) to
     batched_pipeline on phase 6's batch of 8. Returns K2's block-form
-    launches by path (counted from 0 here)."""
+    launches by the shape of K2_BLOCK_SHAPES they were made at (counted
+    from 0 here)."""
     import torch
 
     from babble_tpu_torch.ops import kernels
@@ -2803,48 +2846,74 @@ def mesh_collectives(batch_arrays, batch_sm, seed: int) -> dict:
 
     import numpy as np
 
-    E, P = 4096, 64
-    sm = 2 * P // 3 + 1
-    la, fd = k2_inputs(1, E, P, seed)
-    want = kernels.strongly_see(la, fd, sm)
-    mesh = virtual_mesh(MESH_N)
-    ring = ring_mesh(MESH_N, devices=mesh_devices(MESH_N))
+    at = Counter()  # block-form launches by (B, X, Y, P)
+
+    def launched(key, fn):
+        before = kernels.launch_counts()["strongly_see_block"]
+        out = fn()
+        at[key] += kernels.launch_counts()["strongly_see_block"] - before
+        return out
+
     kernels.reset_launch_counts()
-    got = sharded_strongly_see(mesh, sm)(la, fd)
-    n_shard = kernels.launch_counts()["strongly_see_block"]
-    got_ring = ring_strongly_see(ring, sm)(la, fd)
-    n_ring = kernels.launch_counts()["strongly_see_block"] - n_shard
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got_ring, want)):
-        raise AssertionError("[mesh] sharded or ring strongly-see differs "
-                             "from K2")
-    votes = want[:, :E // 2]
+    E = 4096
+    wants = {}
+    for P, shards in ((64, (2, MESH_N, 8)), (16, (MESH_N,))):
+        sm = 2 * P // 3 + 1
+        la, fd = k2_inputs(1, E, P, seed + P)
+        want = wants[P] = kernels.strongly_see(la, fd, sm)
+        for n in shards:
+            got = launched((1, E // n, E, P), lambda: sharded_strongly_see(
+                virtual_mesh(n), sm)(la, fd))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[mesh] sharded strongly-see at n {n} "
+                                     f"differs from K2 at ({E}, {P})")
+            if P != 64:
+                continue
+            ring = ring_mesh(n, devices=mesh_devices(n))
+            got = launched((1, E // n, E // n, P),
+                           lambda: ring_strongly_see(ring, sm)(la, fd))
+            if not torch.equal(got, want):
+                raise AssertionError(f"[mesh] ring strongly-see at n {n} "
+                                     f"differs from K2 at ({E}, {P})")
+    votes = wants[64][:, :E // 2]
     eligible = torch.from_numpy(
         np.random.RandomState(seed).rand(E) < 0.7).cuda()
-    counts = sharded_vote_counts(mesh)(votes, eligible)
+    counts = sharded_vote_counts(virtual_mesh(MESH_N))(votes, eligible)
     if not torch.equal(counts, (votes & eligible[:, None]).sum(
             0, dtype=torch.int32)):
         raise AssertionError("[mesh] sharded vote counts differ")
-    round_bound = 512 // batch_sm + 2
-    grid = virtual_mesh(MESH_N, dp=2)
-    before = kernels.launch_counts()["strongly_see_block"]
-    got_p = sharded_batched_pipeline(grid, batch_sm, round_bound)(
-        *batch_arrays)
-    n_pipe = kernels.launch_counts()["strongly_see_block"] - before
+    B, n_ev = batch_arrays[4].shape[:2]
+    round_bound = n_ev // batch_sm + 2
     want_p = batched_pipeline(batch_sm, round_bound, device="cuda")(
         *batch_arrays)
-    for name, g, w in zip(("see", "ss", "packed"), got_p, want_p):
-        if not torch.equal(g, w):
-            raise AssertionError(f"[mesh] sharded pipeline {name} differs")
-    if (n_shard, n_ring, n_pipe) != (MESH_N, MESH_N * MESH_N, 2 * 2):
-        raise AssertionError(f"[mesh] K2 block launches {n_shard}, {n_ring},"
-                             f" {n_pipe}")
-    log(f"[mesh] on {MESH_N} virtual shards: sharded_strongly_see "
-        f"({n_shard} block launches) and ring_strongly_see ({n_ring}) equal "
-        f"K2 at ({E}, {P}); sharded_vote_counts equals the plain tally; "
-        f"sharded_batched_pipeline at (dp 2, sp 2) equals batched_pipeline "
-        f"on phase 6's batch of 8 ({n_pipe} block launches)")
-    return {"sharded": n_shard, "ring": n_ring, "pipeline": n_pipe}
+    for dp in (2, 1):
+        sp = MESH_N // dp
+        grid = virtual_mesh(MESH_N, dp=dp)
+        got_p = launched((B // dp, n_ev // sp, n_ev, batch_arrays[4].shape[2]),
+                         lambda: sharded_batched_pipeline(
+                             grid, batch_sm, round_bound)(*batch_arrays))
+        for name, g, w in zip(("see", "ss", "packed"), got_p, want_p):
+            if not torch.equal(g, w):
+                raise AssertionError(f"[mesh] sharded pipeline at (dp {dp}, "
+                                     f"sp {sp}) {name} differs")
+    want_at = Counter()
+    for n in (2, MESH_N, 8):
+        want_at[(1, E // n, E, 64)] += n
+        want_at[(1, E // n, E // n, 64)] += n * n
+    want_at[(1, E // MESH_N, E, 16)] += MESH_N
+    for dp in (2, 1):
+        want_at[(B // dp, n_ev * dp // MESH_N, n_ev,
+                 batch_arrays[4].shape[2])] += MESH_N
+    if at != want_at:
+        raise AssertionError(f"[mesh] K2 block launches {dict(at)}, want "
+                             f"{dict(want_at)}")
+    log(f"[mesh] on 2, 4 and 8 virtual shards: sharded_strongly_see and "
+        f"ring_strongly_see equal K2 at ({E}, 64), and at ({E}, 16) on 4; "
+        f"sharded_vote_counts equals the plain tally; "
+        f"sharded_batched_pipeline at (dp 2, sp 2) and (dp 1, sp 4) equals "
+        f"batched_pipeline on phase 6's batch of {B}; block launches by "
+        f"(B, X, Y, P): {dict(at)}")
+    return at
 
 
 def k1_rect_tile(shape) -> int:
@@ -2870,14 +2939,14 @@ def mesh_phase(seed, streams, single_64, batch_arrays, batch_sm) -> list:
             f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of "
             f"bound, tile {k1_rect_tile(shape)}")
     k2_rows = []
-    for i, shape in enumerate(K2_BLOCK_SHAPES):
+    for i, (shape, what) in enumerate(K2_BLOCK_SHAPES):
         row = check_k2_block(shape, seed + 10 + i)
-        k2_rows.append(row)
-        log(f"K2 block X, Y, P, ldo, col0 {shape}: equal to plain on random "
-            f"and edge values; kernel {row['ms']:.5f} ms, plain "
-            f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
+        k2_rows.append((row, what))
+        log(f"K2 block B, X, Y, P, ldo, col0 {shape} ({what}): equal to "
+            f"plain on random and edge values; kernel {row['ms']:.5f} ms, "
+            f"plain {row['plain_ms']:.5f} ms, bound {row['bound_ms']:.3g} ms "
             f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} of "
-            f"bound, tile {kernels.strongly_see_block_tile(shape[0], shape[1])}")
+            f"bound, tile {row['tile']}")
 
     rows = []
     (ev16, peers16, _ps16, want16), (ev64, peers64, ps64, want64) = streams
@@ -2921,17 +2990,16 @@ def mesh_phase(seed, streams, single_64, batch_arrays, batch_sm) -> list:
 
     copro_lane(ev16, peers16, want16, seed + 30)
     blocks = mesh_collectives(batch_arrays, batch_sm, seed + 40)
-    for row, (name, launches) in zip(
-            k2_rows, (("sharded_strongly_see shard", blocks["sharded"]),
-                      ("ring step", blocks["ring"]))):
-        X, Y, P, ldo, col0 = row["shape"]
+    for row, what in k2_rows:
+        B, X, Y, P, _ldo, col0 = row["shape"]
         rows.append({
-            "name": f"strongly_see_block[{name}, X {X}, Y {Y}, P {P}, "
+            "name": f"strongly_see_block[{what}, B {B}, X {X}, Y {Y}, P {P}, "
                     f"col0 {col0}]",
             "route": "cuda",
             "source": "babble_tpu_torch/csrc/strongly_see.cu",
-            "replaces": "babble_tpu/parallel/collectives.py:36-109",
-            "launches": launches,
+            "replaces": ("babble_tpu/parallel/pipeline.py:33" if B > 1 else
+                         "babble_tpu/parallel/collectives.py:36-109"),
+            "launches": blocks[(B, X, Y, P)],
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2939,9 +3007,114 @@ def mesh_phase(seed, streams, single_64, batch_arrays, batch_sm) -> list:
             "bound_by": row["bound_by"],
             "library_ms": None,
             "shape": row["shape"],
-            "launches_by_path": blocks,
+            "tile": row["tile"],
+            "launches_by_path": {" ".join(map(str, k)): v
+                                 for k, v in sorted(blocks.items())},
         })
     return rows
+
+
+# the square K2 rows of the kernel table, as block shapes (B, X, Y, P, ldo,
+# col0)
+K2_SQUARE_BLOCKS = [(B, E, E, P, E, 0) for B, E, P in K2_ROWS]
+
+
+# the tiles of K2's block form: (rows, columns) of output a block and the
+# blocks an SM each is compiled for, by the name in kernels.K2_TILES
+K2_TILE_SHAPES = {"32x32": (32, 32, 4), "64x64": (64, 64, 4),
+                  "64x128": (64, 128, 3), "128x128": (128, 128, 2)}
+
+
+def k2_tile_rule(X: int, Y: int, B: int = 1) -> str:
+    """The rule of ``bt_strongly_see_block_tile`` (csrc/strongly_see.cu) in
+    Python, for the tests and the tile table: the tile K2's block form takes
+    for B blocks of X rows against Y columns. The first tile, largest
+    first, whose grid fills its share of one wave (H100_SMS x the tile's
+    blocks an SM): 9/10 for the 128 tile, 1/2 for 64 x 128, 1/5 for 64 x
+    64; else the 32 tile."""
+    for tile, (num, den) in (("128x128", (9, 10)), ("64x128", (1, 2)),
+                             ("64x64", (1, 5))):
+        bm, bn, per_sm = K2_TILE_SHAPES[tile]
+        blocks = -(-X // bm) * -(-Y // bn) * B
+        if blocks * den >= num * H100_SMS * per_sm:
+            return tile
+    return "32x32"
+
+
+def sass_counts(so: str) -> dict:
+    """The SASS of every K2 kernel in the library ``so`` (``cuobjdump
+    -sass``; names demangled where ``cu++filt`` is there): the instructions
+    of its compare loop, from its first predicated FADD to its last, by
+    opcode with modifiers, and their total."""
+    import os
+    import re
+    import subprocess
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    text = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
+                           so], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "strongly_see_kernel" not in name:
+            continue
+        try:
+            name = subprocess.run([os.path.join(cuda, "bin", "cu++filt"),
+                                   name], capture_output=True, text=True,
+                                  check=True).stdout.strip()
+        except (OSError, subprocess.CalledProcessError):
+            pass
+        ops = [re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?P[T0-9]\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)", line)
+               for line in part.splitlines()]
+        ops = [(bool(m.group(1)), m.group(2)) for m in ops if m]
+        fadds = [i for i, (pred, op) in enumerate(ops)
+                 if pred and op == "FADD"]
+        loop = Counter(op for _, op in ops[fadds[0]:fadds[-1] + 1]
+                       ) if fadds else Counter()
+        out[name] = {"instructions": sum(loop.values()),
+                     **dict(loop.most_common())}
+    return out
+
+
+def k2_tile_table(seed: int) -> list:
+    """Every tile of ``kernels.K2_TILES`` at every block shape of
+    K2_BLOCK_SHAPES and at the square K2 rows (K2_SQUARE_BLOCKS): each equal
+    to the plain version on random and edge values, and timed. Prints a
+    line a shape (each tile's ms, the fastest, the tile the C entry picks
+    and its time over the fastest's), then the SASS counts of each K2
+    kernel, and returns the records."""
+    from babble_tpu_torch.ops import kernels
+
+    recs = []
+    shapes = [shape for shape, _ in K2_BLOCK_SHAPES] + K2_SQUARE_BLOCKS
+    for i, shape in enumerate(shapes):
+        B, X, Y, P, _ldo, _col0 = shape
+        inputs = k2_block_inputs(shape, seed + i)
+        ms = {tile: check_k2_block(shape, seed + i, tile, inputs,
+                                   plain=False)["ms"]
+              for tile in kernels.K2_TILES}
+        best = min(ms, key=ms.get)
+        pick = kernels.strongly_see_block_tile(X, Y, B)
+        if pick != k2_tile_rule(X, Y, B):
+            raise AssertionError(f"K2 block {shape}: the C entry picks "
+                                 f"{pick}, its rule in Python "
+                                 f"{k2_tile_rule(X, Y, B)}")
+        bound_ms, bound_by = k2_bound_ms(B, X, P, Y)
+        recs.append({"shape": list(shape), "ms": ms, "fastest": best,
+                     "picked": pick, "bound_ms": bound_ms,
+                     "bound_by": bound_by})
+        log(f"[k2 tiles] {shape}: "
+            + ", ".join(f"{t} {m:.5f}" for t, m in ms.items())
+            + f" ms; fastest {best}; picked {pick}, "
+            f"{ms[pick] / ms[best]:.3f} x the fastest; bound "
+            f"{bound_ms:.3g} ms ({bound_by}), the pick at "
+            f"{bound_ms / ms[pick]:.1%} of it")
+    for name, ops in sass_counts(kernels.build()).items():
+        log(f"[k2 sass] {name}: {json.dumps(ops)}")
+    print("K2TILES " + json.dumps(recs), flush=True)
+    return recs
 
 
 # ``kernel_ab``: phase 2's times there, through functions every version of
@@ -2951,7 +3124,7 @@ import json, sys, torch
 import chip_smoke as c
 from babble_tpu_torch.ops import kernels
 kernels.build()
-k1, k2, k3_b = json.loads(sys.argv[1])
+k1, k2, k3_b, blocks = json.loads(sys.argv[1])
 k3 = None
 if hasattr(kernels, "ecdsa_shamir"):
     import hashlib
@@ -2966,18 +3139,30 @@ if hasattr(kernels, "ecdsa_shamir"):
     for B in k3_b:
         inp = verify._prepare((items * (B // 64 + 1))[:B], "cuda")
         k3[B] = c.time_on_device(lambda: kernels.ecdsa_shamir(*inp[1:]))
+blk = []
+for i, (B, X, Y, P, ldo, col0) in enumerate(blocks):
+    n = max(X, Y)
+    la, fd = c.k2_inputs(B, n, P, 71 + i)
+    a, f = la[..., :X, :].contiguous(), fd[..., n - Y:, :].contiguous()
+    out = torch.zeros((*la.shape[:-2], X, ldo), dtype=torch.bool,
+                      device="cuda")
+    sm = 2 * P // 3 + 1
+    blk.append(c.time_on_device(
+        lambda: kernels.strongly_see_block(a, f, sm, out, col0)))
 print("AB " + json.dumps({
     "floor_ms": c.time_on_device(lambda: torch.cuda._sleep(0)),
     "k1": [c.check_k1(tuple(s), seed=1 + i)["ms"] for i, s in enumerate(k1)],
     "k2": [c.check_k2(tuple(s), seed=51 + i)["ms"] for i, s in enumerate(k2)],
     "k3": k3,
+    "blocks": blk,
 }))
 """
 
 
 def kernel_ab(trees) -> None:
-    """Phase 2's kernel times, and K3's at every B of VERIFY_TIMED_B, in
-    each tree of ``trees`` (checkouts of this repo, each with its own
+    """Phase 2's kernel times, K2's block form at every shape of
+    K2_BLOCK_SHAPES (at the tile each tree's C entry picks), and K3's at
+    every B of VERIFY_TIMED_B, in each tree of ``trees`` (checkouts of this repo, each with its own
     build), one fresh process per tree, in the
     order given (old, new, new, old compares two commits on one card);
     prints one line per tree and shape, and a table of the per-tree
@@ -2985,7 +3170,8 @@ def kernel_ab(trees) -> None:
     import os
     import subprocess
 
-    shapes = json.dumps([K1_SHAPES, K2_SHAPES, VERIFY_TIMED_B])
+    blocks = [shape for shape, _ in K2_BLOCK_SHAPES]
+    shapes = json.dumps([K1_SHAPES, K2_SHAPES, VERIFY_TIMED_B, blocks])
     runs = []
     for tree in trees:
         proc = subprocess.run([sys.executable, "-c", _AB_CHILD, shapes],
@@ -3000,12 +3186,13 @@ def kernel_ab(trees) -> None:
     by_tree = {}
     for tree, rec in runs:
         by_tree.setdefault(tree, []).append(rec)
-    names = ([("K1", s) for s in K1_SHAPES] + [("K2", s) for s in K2_SHAPES])
+    names = ([("K1", "k1", i, s) for i, s in enumerate(K1_SHAPES)]
+             + [("K2", "k2", i, s) for i, s in enumerate(K2_SHAPES)]
+             + [("K2 block", "blocks", i, s) for i, s in enumerate(blocks)])
     for tree, recs in by_tree.items():
         floor = statistics.median(r["floor_ms"] for r in recs)
         log(f"[ab] {tree}: {len(recs)} runs, launch floor {floor:.5f} ms")
-        for k, (kind, shape) in enumerate(names):
-            key, idx = ("k1", k) if kind == "K1" else ("k2", k - len(K1_SHAPES))
+        for kind, key, idx, shape in names:
             ms = [r[key][idx] for r in recs]
             log(f"[ab] {tree} {kind} {shape}: median {statistics.median(ms):.5f}"
                 f" ms of {[round(m, 5) for m in ms]}")
@@ -3063,6 +3250,10 @@ def main(argv=None) -> int:
                     help="only time phase 2's kernels and K3 in each of "
                     "these checkouts in turn (e.g. old new new old) and "
                     "exit")
+    ap.add_argument("--k2-tiles", action="store_true",
+                    help="only time every tile of K2's block form at the "
+                    "collectives' and the square K2's shapes, against the "
+                    "plain version, and exit")
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
@@ -3088,6 +3279,11 @@ def main(argv=None) -> int:
         return 0
     if args.nodes_ab:
         nodes_ab(args.nodes_ab)
+        return 0
+    if args.k2_tiles:
+        kernels.build()
+        log(kernels.ptxas_report)
+        k2_tile_table(args.seed)
         return 0
     # phase 4's stream; its host oracle replays in a child process from
     # here on, beside the card work of phases 1-3 and 5-7

@@ -27,6 +27,7 @@ from babble_tpu_torch.parallel import batch_of_snapshots, batched_pipeline
 from babble_tpu_torch.peers import Peer, PeerSet
 
 from chip_smoke import (
+    K2_BLOCK_SHAPES,
     Pump,
     check_field_ops,
     cluster_arm,
@@ -35,6 +36,7 @@ from chip_smoke import (
     field_edge_pairs,
     http_get,
     k1_edge_inputs,
+    k2_tile_rule,
     ladder_edge_items,
     native_verify_items,
     noncanonical_pairs,
@@ -368,13 +370,14 @@ def test_k2_kernel_equals_plain(card, shape, values):
 
 def test_card_shapes_take_both_tiles(card):
     """The shapes above launch both tile sizes of the shared tile loop,
-    for K1 with one and with two slots per block."""
+    for K1 with one and with two slots per block, and K2 the 32 and 128
+    tiles."""
     k1 = {(kernels.member_ss_tile(W, S), min(S, 2))
           for W, _P, S in K1_CARD_SHAPES}
     assert {(32, 1), (32, 2), (128, 1), (128, 2)} <= k1
     k2 = {kernels.strongly_see_tile(s[-2], s[0] if len(s) == 3 else 1)
           for s in K2_CARD_SHAPES}
-    assert k2 == {32, 128}
+    assert {"32x32", "128x128"} <= k2
 
 
 def test_k2_refuses_what_it_cannot_take(card):
@@ -722,30 +725,41 @@ def test_k1_rectangular_equals_plain(card, B, V, W, P, S, values):
 
 
 def test_rectangular_shapes_take_both_tiles(card):
+    """K1's rectangular shapes launch both of its tiles; K2's block form
+    takes, at every shape of the collectives' table and of a grid of
+    others, the tile its rule picks (``chip_smoke.k2_tile_rule``, the C
+    entry's rule in Python)."""
     tiles = {kernels.member_ss_tile(W, S, max(B, 1), V=V)
              for B, V, W, _P, S in K1_RECT_CARD_SHAPES}
     assert tiles == {32, 128}
-    blocks = {kernels.strongly_see_block_tile(X, Y, max(B, 1))
-              for B, X, Y, *_rest in K2_BLOCK_CARD_SHAPES}
-    assert blocks == {32, 128}
+    shapes = [(X, Y, B) for (B, X, Y, *_rest), _what in K2_BLOCK_SHAPES]
+    shapes += [(X, Y, B) for X in (1, 100, 512, 1000, 2048, 4096)
+               for Y in (1, 512, 1024, 4096, 8192) for B in (1, 3, 8)]
+    picks = {shape: kernels.strongly_see_block_tile(*shape)
+             for shape in shapes}
+    assert picks == {shape: k2_tile_rule(*shape) for shape in shapes}
+    assert set(picks.values()) == set(kernels.K2_TILES)
 
 
-# (B, X, Y, P, ldo, col0), B 0 for one block: a sharded_strongly_see shard
-# and a ring step of (4096, 64) over 4 shards, a byte-wise epilogue (Y, ldo
-# and col0 off multiples of 4), the 128 tile at an offset, and a batch
+# (B, X, Y, P, ldo, col0), B 0 for one block: the collectives' shapes
+# (K2_BLOCK_SHAPES: sharded_strongly_see shards at n 2, 4 and 8, ring steps,
+# the sharded pipeline's batched shards), a byte-wise epilogue (Y, ldo and
+# col0 off multiples of 4), the 128 tile at an offset, and a batch
 K2_BLOCK_CARD_SHAPES = [
-    (0, 1024, 4096, 64, 4096, 0), (0, 1024, 1024, 64, 4096, 2048),
-    (0, 37, 50, 6, 101, 3), (0, 2100, 2096, 9, 4200, 2100),
-    (3, 100, 60, 8, 64, 4),
-]
+    (B if B > 1 else 0, X, Y, P, ldo, col0)
+    for (B, X, Y, P, ldo, col0), _what in K2_BLOCK_SHAPES
+] + [(0, 37, 50, 6, 101, 3), (0, 2100, 2096, 9, 4200, 2100),
+     (3, 100, 60, 8, 64, 4)]
 
 
+@pytest.mark.parametrize("tile", [None, *kernels.K2_TILES])
 @pytest.mark.parametrize("values", ["random", "edge"])
 @pytest.mark.parametrize("B,X,Y,P,ldo,col0", K2_BLOCK_CARD_SHAPES)
-def test_k2_block_equals_plain(card, B, X, Y, P, ldo, col0, values):
-    """K2's block form writes exactly columns col0 .. col0 + Y of its
-    output, equal to the plain version's and to the square launch's
-    sub-block, and leaves every other byte; one launch."""
+def test_k2_block_equals_plain(card, B, X, Y, P, ldo, col0, values, tile):
+    """K2's block form, at every tile and at the one its C entry picks
+    (None), writes exactly columns col0 .. col0 + Y of its output, equal
+    to the plain version's and to the square launch's sub-block, and
+    leaves every other byte; one launch."""
     lead = (B,) if B else ()
     n = max(X, Y)
     if values == "random":
@@ -760,7 +774,8 @@ def test_k2_block_equals_plain(card, B, X, Y, P, ldo, col0, values):
     before = torch.from_numpy(
         np.random.RandomState(X).rand(*lead, X, ldo) < 0.5).to(card)
     kernels.reset_launch_counts()
-    got = kernels.strongly_see_block(a, f, sm, before.clone(), col0)
+    got = kernels._strongly_see_block_at(tile, a, f, sm, before.clone(),
+                                         col0)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["strongly_see_block"] == 1
     assert kernels.launch_counts()["strongly_see"] == 0
@@ -792,14 +807,19 @@ def test_mesh_sweep_on_virtual_shards(card):
 
 
 def test_mesh_collectives_and_sharded_pipeline_on_card(card):
-    """sharded_strongly_see, ring_strongly_see, sharded_vote_counts and
-    sharded_batched_pipeline on 4 virtual shards equal K2, the plain tally
-    and batched_pipeline on the card."""
+    """sharded_strongly_see and ring_strongly_see on 2, 4 and 8 virtual
+    shards, sharded_vote_counts, and sharded_batched_pipeline at (dp 2, sp
+    2) and (dp 1, sp 4) equal K2, the plain tally and batched_pipeline on
+    the card, with one block-form launch a shard (and ring step) at each
+    shape of the collectives' table."""
     from chip_smoke import mesh_collectives
 
     arrays, sm = batch_of_snapshots(8, 16, 512)
-    assert mesh_collectives(arrays, sm, 3) == {"sharded": 4, "ring": 16,
-                                               "pipeline": 4}
+    assert mesh_collectives(arrays, sm, 3) == {
+        (1, 2048, 4096, 64): 2, (1, 1024, 4096, 64): 4,
+        (1, 512, 4096, 64): 8, (1, 1024, 4096, 16): 4,
+        (1, 2048, 2048, 64): 4, (1, 1024, 1024, 64): 16,
+        (1, 512, 512, 64): 64, (4, 256, 512, 16): 4, (8, 128, 512, 16): 4}
 
 
 def test_copro_lane_on_card(card, monkeypatch):

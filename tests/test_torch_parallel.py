@@ -39,6 +39,7 @@ from babble_tpu_torch.parallel import (
 )
 from babble_tpu_torch.parallel import voting_shard as pvs
 
+from chip_smoke import K2_BLOCK_SHAPES, K2_SQUARE_BLOCKS, k2_tile_rule
 from tests.test_accel import _ordered_events
 from tests.test_torch_accel import _jax_replay
 from tests.test_torch_voting import (
@@ -56,6 +57,40 @@ SHARDS = [1, 2, 4, 8]
 
 def cpu_mesh(n: int, dp=None):
     return consensus_mesh(n, dp=dp, devices=[CPU] * n)
+
+
+#: the tile K2's block form should take at each (B, X, Y, P) of the tile
+#: table measured on the card (``chip_smoke.py --k2-tiles``; PERF.md,
+#: section 6): the fastest tile in both of its runs, except where two
+#: shapes that differ only in P share the picker's (X, Y, B) and disagree:
+#: (512, 512) takes the 32 tile, the fastest at P 16 (a square K2 row), at
+#: 3.1-3.7% over 64 x 64 at P 64 (a ring step of 8 shards); and (4096,
+#: 4096) the 128 tile, the fastest at P 64, at 1.3-1.4% over 64 x 128 at P
+#: 16
+K2_TABLE_TILES = {
+    (1, 2048, 4096, 64): "128x128", (1, 1024, 4096, 64): "128x128",
+    (1, 512, 4096, 64): "64x128", (1, 1024, 4096, 16): "128x128",
+    (1, 2048, 2048, 64): "128x128", (1, 1024, 1024, 64): "64x64",
+    (1, 512, 512, 64): "32x32", (4, 256, 512, 16): "64x64",
+    (8, 128, 512, 16): "64x64", (1, 4096, 4096, 16): "128x128",
+    (1, 4096, 4096, 64): "128x128", (1, 512, 512, 16): "32x32",
+    (8, 512, 512, 16): "64x128",
+}
+
+
+def test_k2_tile_table_covers_the_collectives_and_square_shapes():
+    """The table holds every block shape the collectives launch and every
+    square K2 row."""
+    shapes = [s for s, _ in K2_BLOCK_SHAPES] + K2_SQUARE_BLOCKS
+    assert sorted(K2_TABLE_TILES) == sorted(tuple(s[:4]) for s in shapes)
+
+
+@pytest.mark.parametrize("shape", sorted(K2_TABLE_TILES))
+def test_k2_tile_rule_reproduces_the_measured_table(shape):
+    """The picker's rule (the C entry's, in Python; the card tests hold the
+    two equal) takes the table's tile at every shape."""
+    B, X, Y, _P = shape
+    assert k2_tile_rule(X, Y, B) == K2_TABLE_TILES[shape]
 
 
 def test_mesh_shapes_follow_the_jax_rule():
@@ -127,6 +162,64 @@ def test_ring_strongly_see_matches_all_gather_kernel(ring_case, n):
     np.testing.assert_array_equal(ag.numpy(), want)
     # on the CPU the block form takes its plain version: no launch counted
     assert kernels.launch_counts()["strongly_see_block"] == 0
+
+
+#: (E, P) of the ragged splits: E / n rows a shard off every multiple of
+#: the block form's tiles (32, 64, 128) at n = 2, 4 and 8, and P off the
+#: 16-peer chunk
+RAGGED = [(8 * 100, 37), (8 * 36, 5)]
+
+
+@pytest.fixture(scope="module", params=RAGGED, ids=lambda c: f"E{c[0]}-P{c[1]}")
+def ragged_case(request):
+    """Seeded coordinates with both sentinels at a ragged (E, P), and the
+    JAX ring and all-gather results on its 8-device mesh."""
+    E, P = request.param
+    rng = np.random.RandomState(E + P)
+    la = rng.randint(-1, 30, size=(E, P)).astype(np.int32)
+    fd = rng.randint(0, 30, size=(E, P)).astype(np.int32)
+    fd[rng.rand(E, P) < 0.25] = INT32_MAX
+    sm = 2 * P // 3 + 1
+    got_ring = np.asarray(jcoll.ring_strongly_see(jmesh.ring_mesh(8),
+                                                  sm)(la, fd))
+    got_ag = np.asarray(jcoll.sharded_strongly_see(
+        jmesh.consensus_mesh(8), sm)(la, fd))
+    np.testing.assert_array_equal(got_ring, got_ag)
+    return la, fd, sm, got_ag
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_collectives_on_ragged_splits(ragged_case, n):
+    """The port's sharded and ring strongly-see on n shards whose row
+    blocks leave a ragged last tile of K2's block form (and a ragged peer
+    chunk) equal the JAX package's collectives on its 8 devices."""
+    la, fd, sm, want = ragged_case
+    ring = ring_strongly_see(ring_mesh(n, devices=[CPU] * n), sm)(la, fd)
+    ag = sharded_strongly_see(cpu_mesh(n), sm)(la, fd)
+    np.testing.assert_array_equal(ring.numpy(), want)
+    np.testing.assert_array_equal(ag.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def ragged_pipeline_case():
+    """A batch of 4 windows of 100 events (25 rows a shard on the JAX
+    (dp 2, sp 4) mesh) and the JAX sharded pipeline's outputs there."""
+    mesh = jmesh.consensus_mesh(8)
+    arrays, sm = jpipe.batch_of_snapshots(4, n_peers=5, n_events=100)
+    got = jpipe.sharded_batched_pipeline(mesh, sm, 100)(
+        *jmesh.shard_batched_snapshot(mesh, arrays))
+    return arrays, sm, tuple(np.asarray(a) for a in got)
+
+
+@pytest.mark.parametrize("n", SHARDS)
+def test_sharded_pipeline_on_ragged_splits(ragged_pipeline_case, n):
+    """sharded_batched_pipeline with 100-event windows split over sp (25,
+    50 or 100 rows a shard: ragged against every tile of K2's block form)
+    equals the JAX package's sharded pipeline on its (dp 2, sp 4) mesh."""
+    arrays, sm, want = ragged_pipeline_case
+    got = sharded_batched_pipeline(cpu_mesh(n), sm, 100)(*arrays)
+    for name, g, w in zip(("see", "ss", "packed"), got, want):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
 
 
 @pytest.fixture(scope="module")
