@@ -320,8 +320,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--accelerator", action="store_true")
     run.add_argument(
         "--accelerator-mesh", dest="accelerator_mesh", type=int, default=None,
-        help="shard voting sweeps over this many devices (not ported: "
-        "a value above 1 is refused)",
+        help="shard voting sweeps over this many CUDA cards (a value "
+        "that is not a power of two, more cards than the host has, or a "
+        "CPU offload logs a warning and sweeps on one device)",
     )
     run.add_argument(
         "--accelerator-device", dest="accelerator_device", default=None,

@@ -233,7 +233,9 @@ class Config:
     # batched sweeps (hashgraph/accel.py) running the kernels in
     # babble_tpu_torch.ops.
     accelerator: bool = False
-    # Multi-device sweeps are not ported yet: Node.init refuses > 1.
+    # Shard the voting sweeps over this many CUDA cards (0 = one
+    # device); Node._attach_mesh takes the process's first n cards, and
+    # runs single-device, with a warning, where it cannot.
     accelerator_mesh: int = 0
     # The torch device of the offload: the CUDA card by default (no card
     # is an error at start-up, never a CPU run); tests pass "cpu".

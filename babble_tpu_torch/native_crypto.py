@@ -1,12 +1,20 @@
 """ctypes loader for the native batch crypto library (native/secp256k1.cc).
 
 The port keeps its own loader so it never imports the JAX package. It
-builds the C++ source at the repository root with g++ on first use, into
-the git-ignored ``build/native/`` directory, and loads only that build —
-never a prebuilt shared object from the checkout. When there is no source
-or no compiler, every entry point returns None and ``crypto.keys`` falls
-through to OpenSSL (``cryptography``) and then pure Python, in the same
-order as the JAX package.
+builds the C++ source with g++ on first use and searches in the JAX
+package's order:
+
+1. a checkout: the repository's ``native/secp256k1.cc``, built into the
+   git-ignored ``build/native/`` (never the shared object committed
+   beside the source);
+2. an installed package: ``babble_tpu_torch/_native/``, where the wheel
+   ships the source and, built where a compiler was found, the library;
+3. a user-cache build (``~/.cache/babble_tpu_torch/native/``) when the
+   package directory is read-only.
+
+When there is no source or no compiler, every entry point returns None
+and ``crypto.keys`` falls through to OpenSSL (``cryptography``) and then
+pure Python, in the same order as the JAX package.
 """
 
 from __future__ import annotations
@@ -20,31 +28,52 @@ from typing import List, Optional, Sequence, Tuple
 
 logger = logging.getLogger(__name__)
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_REPO_ROOT, "native", "secp256k1.cc")
-_SO = os.path.join(_REPO_ROOT, "build", "native", "libbabble_crypto.so")
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_ROOT = os.path.dirname(_PKG_DIR)
+_SO_NAME = "libbabble_crypto.so"
+
+# (source, shared object, user-cache shared object) in search order: the
+# checkout, which builds only inside itself, then the installed package
+_CANDIDATES = [
+    (os.path.join(_REPO_ROOT, "native", "secp256k1.cc"),
+     os.path.join(_REPO_ROOT, "build", "native", _SO_NAME), None),
+    (os.path.join(_PKG_DIR, "_native", "secp256k1.cc"),
+     os.path.join(_PKG_DIR, "_native", _SO_NAME),
+     os.path.join(os.path.expanduser("~"), ".cache", "babble_tpu_torch",
+                  "native", _SO_NAME)),
+]
+
+
+def _locate(candidates) -> Tuple[str, str, Optional[str]]:
+    """The first candidate whose source exists, else the first one (whose
+    missing source makes every entry point None)."""
+    return next((c for c in candidates if os.path.exists(c[0])),
+                candidates[0])
+
+
+_SRC, _SO, _SO_FALLBACK = _locate(_CANDIDATES)
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _lock = threading.Lock()
 
 
-def _build() -> bool:
+def _build_at(so_path: str) -> bool:
     # Compile to a temp path and rename into place: os.replace is atomic on
     # POSIX, so concurrent processes never dlopen a half-written library.
-    tmp = f"{_SO}.tmp.{os.getpid()}"
+    tmp = f"{so_path}.tmp.{os.getpid()}"
     try:
-        os.makedirs(os.path.dirname(_SO), exist_ok=True)
+        os.makedirs(os.path.dirname(so_path), exist_ok=True)
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-pthread", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
             timeout=120,
         )
-        os.replace(tmp, _SO)
+        os.replace(tmp, so_path)
         return True
     except (OSError, subprocess.SubprocessError) as err:
-        logger.info("native crypto build unavailable at %s: %s", _SO, err)
+        logger.info("native crypto build unavailable at %s: %s", so_path, err)
         try:
             os.unlink(tmp)
         except OSError:
@@ -52,21 +81,36 @@ def _build() -> bool:
         return False
 
 
-def _stale() -> bool:
-    return not os.path.exists(_SO) or (
-        os.path.getmtime(_SRC) > os.path.getmtime(_SO)
+def _build() -> bool:
+    global _SO
+    if _build_at(_SO):
+        return True
+    # a read-only install directory: build into the user cache instead
+    if _SO_FALLBACK and _SO != _SO_FALLBACK and _build_at(_SO_FALLBACK):
+        _SO = _SO_FALLBACK
+        return True
+    return False
+
+
+def _stale(so_path: Optional[str]) -> bool:
+    return not so_path or not os.path.exists(so_path) or (
+        os.path.exists(_SRC)
+        and os.path.getmtime(_SRC) > os.path.getmtime(so_path)
     )
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, _SO
     with _lock:
         if _tried:
             return _lib
         _tried = True
         if not os.path.exists(_SRC):
             return None
-        if _stale() and not _build():
+        if _stale(_SO) and not _stale(_SO_FALLBACK):
+            # an earlier process already built into the user cache
+            _SO = _SO_FALLBACK
+        if _stale(_SO) and not _build() and not os.path.exists(_SO):
             return None
         try:
             lib = ctypes.CDLL(_SO)

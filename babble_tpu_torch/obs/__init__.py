@@ -17,6 +17,17 @@ the Prometheus exposition the service serves at /metrics.
   ``GET /profile``.
 - ``obs.flight`` and ``obs.provenance`` — the stall watchdog's flight
   recorder and the per-transaction provenance table.
+- ``obs.ledger``     — the bench-history ledger (BENCH_HISTORY_TORCH.jsonl):
+  schema-versioned perf records whose host fingerprint names torch, CUDA
+  and the card.
+- ``obs.perfgate``   — ``python -m babble_tpu_torch.obs.perfgate``:
+  regression gate over the ledger (rolling same-host baseline,
+  noise-aware bands, ``--inject-regression`` self-proof).
+- ``obs.healthview`` — ``python -m babble_tpu_torch.obs.healthview``: every
+  node's /metrics + /stats + /suspects merged into per-node lag, queue
+  depths, quarantine and a commit-p50 SLO verdict.
+- ``obs.traceview``  — ``python -m babble_tpu_torch.obs.traceview``: every
+  node's provenance export merged into cross-node transaction timelines.
 """
 
 from .metrics import Registry, enabled, set_enabled  # noqa: F401

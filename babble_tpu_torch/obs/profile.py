@@ -38,7 +38,7 @@ import os
 import sys
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from .metrics import GLOBAL, enabled as obs_enabled
 
@@ -47,10 +47,11 @@ MAX_STACK_DEPTH = 48
 MAX_STACKS = 8192  # distinct collapsed stacks kept; overflow aggregates
 
 # -- stage taxonomy via frame matching --------------------------------------
-# function name -> (path suffix, stage); innermost match wins. The
-# suffixes pin common names ("commit", "acquire") to the module that
-# gives them their stage meaning (docs/observability.md §Span stages).
-_FRAME_TABLE: Dict[str, Tuple[str, str]] = {
+# function name -> (path suffix or suffixes, stage); innermost match
+# wins. The suffixes pin common names ("commit", "acquire") to the module
+# that gives them their stage meaning (docs/observability.md §Span
+# stages).
+_FRAME_TABLE: Dict[str, Tuple[Union[str, Tuple[str, ...]], str]] = {
     # sync stages
     "prepare_sync": ("node/core.py", "decode"),
     "_decode_chunk": ("node/core.py", "decode"),
@@ -66,16 +67,27 @@ _FRAME_TABLE: Dict[str, Tuple[str, str]] = {
     "process_sig_pool": ("node/node.py", "process_sig_pool"),
     "_pull": ("node/node.py", "request_sync"),
     "_push": ("node/node.py", "eager_sync"),
-    # accel stages (hashgraph/accel.py + ops/voting.py)
+    # accel stages (hashgraph/accel.py + ops/voting.py), named as the
+    # JAX package names them: the snapshot packs, the enqueue and the
+    # hand-off to the batcher dispatch, the write-back applies, and the
+    # rest of a flush (_launch, _apply, waiting on a sweep) is kernel
     "build_voting_window": ("ops/voting.py", "build"),
-    "_build": ("hashgraph/accel.py", "build"),
+    "_snapshot": ("hashgraph/accel.py", "pack"),
+    "_dispatch": (("hashgraph/accel.py", "hashgraph/sweep_batcher.py"),
+                  "dispatch"),
+    "_submit": ("hashgraph/accel.py", "dispatch"),
     "_enqueue": ("hashgraph/accel.py", "dispatch"),
-    "_launch": ("hashgraph/accel.py", "dispatch"),
+    "_flush": ("hashgraph/accel.py", "kernel"),
+    "_write_back": ("hashgraph/accel.py", "apply"),
     "launch_sweep": ("ops/voting.py", "dispatch"),
     "read_sweep": ("ops/voting.py", "readback"),
-    "_apply": ("hashgraph/accel.py", "apply"),
     "apply_fame": ("ops/voting.py", "apply"),
     "apply_round_received": ("ops/voting.py", "apply"),
+    # the sweep batcher's thread: a wave's dispatch (the JAX package
+    # files this thread as ``other``)
+    "_dispatch_group": ("hashgraph/sweep_batcher.py", "dispatch"),
+    "_dispatch_mesh_group": ("hashgraph/sweep_batcher.py", "dispatch"),
+    "launch_batched": ("ops/voting.py", "dispatch"),
     # lock wait: the instrumented core lock only — a thread inside
     # TimedLock.acquire is by definition waiting on the core lock
     "acquire": ("common/timed_lock.py", "lock_wait"),

@@ -96,7 +96,7 @@ class Service:
                 body = self.node.get_suspects()
             elif path.startswith("/trace/"):
                 # one transaction's local provenance record (cross-node
-                # merge: python -m babble_tpu.obs.traceview)
+                # merge: python -m babble_tpu_torch.obs.traceview)
                 body = self.node.get_trace(path[len("/trace/"):])
                 if body is None:
                     self._send(req, 404, {"error": "unknown txid"})
@@ -264,13 +264,14 @@ class Service:
 
     _profile_lock = threading.Lock()
 
-    @classmethod
-    def _torch_profile(cls, qs) -> dict:
+    def _torch_profile(self, qs) -> dict:
         """Capture a torch.profiler trace of the process (CPU ops and, on
         a card, its kernels and copies) for ?seconds=N (default 3, at most
         30) and export it as a chrome trace under
-        <tmpdir>/babble_tpu_torch_profile; answers with the file's path.
-        One capture at a time."""
+        <tmpdir>/babble_tpu_torch_profile; answers with the file's path, the
+        window's length and this node's ``accel_sweeps`` at its start and
+        end (two more applied sweeps mean the window held a whole one). One
+        capture at a time."""
         import math
         import tempfile
         import time as _time
@@ -285,7 +286,12 @@ class Service:
         if not math.isfinite(seconds) or seconds <= 0:
             seconds = 3.0
         seconds = min(seconds, 30.0)
-        if not cls._profile_lock.acquire(blocking=False):
+        accel = getattr(self.node.core.hg, "accel", None)
+
+        def applied() -> int:
+            return accel.sweeps if accel is not None else 0
+
+        if not self._profile_lock.acquire(blocking=False):
             return {"error": "a profile capture is already running"}
         try:
             activities = [ProfilerActivity.CPU]
@@ -298,14 +304,18 @@ class Service:
                 out_dir, f"trace-{os.getpid()}-{_time.time_ns()}.json"
             )
             with profile(activities=activities) as prof:
+                t0, first = _time.monotonic(), applied()
                 _time.sleep(seconds)  # lint: allow(clock: wall capture window for the live device trace)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
+                last = applied()
+                window = _time.monotonic() - t0
             prof.export_chrome_trace(path)
         finally:
-            cls._profile_lock.release()
-        return {"trace_file": path, "seconds": seconds,
-                "activities": [a.name for a in activities]}
+            self._profile_lock.release()
+        return {"trace_file": path, "seconds": seconds, "window_s": window,
+                "activities": [a.name for a in activities],
+                "accel_sweeps": [first, last]}
 
     @staticmethod
     def _send(req: BaseHTTPRequestHandler, code: int, body) -> None:

@@ -68,7 +68,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    which they must agree on, each with device sweeps, resident windows on,
    the batcher as set, no fallback, and time held in the shared slots
    without it; ``/profile?format=torch`` on one of them must hold CUDA
-   kernel records;
+   kernel records; while they run, ``obs.healthview`` over their four
+   services must find every node up, with its lag and round and block
+   rates, and give a commit-p50 SLO verdict (its summary line is printed),
+   and ``obs.traceview`` over their ``/traces`` must merge a transaction
+   with hops on two nodes or more;
 10. device signature verification (K3, ``ops/verify.py``): the cooperative
    field layer on the card (``kernels.field_ops``) at every group size
    equal to Python integers at the edges, on non-canonical add and sub
@@ -86,7 +90,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    chain equal to a host replay, no single re-check, no offload fallback,
    and with device verification one K3 launch per batch verification
    (counted from 0 once the nodes are up), with the median time of a batch
-   verification in each arm;
+   verification in each arm; then the bench ledger (``obs.ledger``): its
+   host fingerprint must name the card, torch and CUDA and no jax, a record
+   of phase 8's tx/s and p50/p95 and phase 10's K3 ms must read back from
+   a history in a temporary directory, and ``obs.perfgate`` must pass five
+   copies of it and fail an injected regression;
 11. the mesh (``babble_tpu_torch/parallel/``) on virtual shards: mesh
    entries that all name the one card, so that every exchange between
    shards and every per-shard kernel launch runs on it (no NVLink is
@@ -1132,6 +1140,15 @@ PUMP_S = 0.003
 MAX_BACKLOG = 2000
 # keeps every event in a node's store, for the replay of node 0's events
 NODE_CACHE = 200_000
+# Undetermined events a node may gain per validator before it suspends
+# itself (Config's default is 100). A suspended node ingests nothing more,
+# so it never commits again. With 16 nodes sharing one interpreter the
+# nodes of a phase 8 arm come within a block's worth of events of the
+# default's 1600 (each arm prints its peak beside the limit), so a node
+# that lags the others by a block suspends and holds the cluster's common
+# block where it was. Ten times the default keeps the valve for a runaway
+# node and out of the way of a lag.
+SUSPEND_LIMIT = 1000
 # the profiled window after the measured one (defaults arm)
 PROFILE_S = 2.0
 # after the windows, with the load stopped: the block every node must reach
@@ -1186,7 +1203,8 @@ def tcp_cluster(n: int, accelerator: bool):
         conf = Config(heartbeat_timeout=HEARTBEAT_S,
                       slow_heartbeat_timeout=SLOW_HEARTBEAT_S,
                       log_level="error", moniker=f"t{i}",
-                      accelerator=accelerator, cache_size=NODE_CACHE)
+                      accelerator=accelerator, cache_size=NODE_CACHE,
+                      suspend_limit=SUSPEND_LIMIT)
         st = DummyState()
         pr = InmemProxy(st)
         node = Node(conf, Validator(k, f"t{i}"), peers, peers,
@@ -1243,6 +1261,49 @@ def tx_latencies(commits, t0: float, t1: float):
     return out
 
 
+def node_states(nodes) -> list:
+    """Per node: its state, last block, last consensus round and the
+    undetermined events it gained since start beside the count at which
+    it suspends itself."""
+    return [
+        [str(n.get_state()), n.get_last_block_index(),
+         n.get_last_consensus_round_index(),
+         len(n.core.get_undetermined_events())
+         - n.initial_undetermined_events,
+         n.conf.suspend_limit * len(n.core.validators)]
+        for n in nodes]
+
+
+class UndeterminedPeaks:
+    """Samples every node's undetermined events (gained since its start)
+    every 0.5 s on a thread of its own: the peak per node, and the nodes
+    seen suspended, to read beside the suspend limit."""
+
+    def __init__(self, nodes):
+        import threading
+
+        self.nodes = nodes
+        self.peak = [0] * len(nodes)
+        self.suspended = set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.5):
+            for i, st in enumerate(node_states(self.nodes)):
+                self.peak[i] = max(self.peak[i], st[3])
+                if st[0] == "Suspended":
+                    self.suspended.add(i)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=10)
+
+
 def check_cluster_blocks(label, nodes) -> int:
     """Every node's chain up to the common block, which must be at least
     SETTLE_BLOCK: byte-identical bodies (tests/test_node.py::check_gossip)
@@ -1250,7 +1311,10 @@ def check_cluster_blocks(label, nodes) -> int:
     common = min(n.get_last_block_index() for n in nodes)
     if common < SETTLE_BLOCK:
         raise AssertionError(f"[{label}] common block {common}: the cluster "
-                             "did not commit")
+                             "did not commit; per node (state, last block, "
+                             "last consensus round, undetermined events "
+                             "since start / suspend limit): "
+                             f"{node_states(nodes)}")
     for bi in range(common + 1):
         ref = nodes[0].get_block(bi).body.hash()
         for n in nodes[1:]:
@@ -1419,9 +1483,11 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
     svc = Service("127.0.0.1:0", nodes[0])
     svc.serve_async()
     rec = {"arm": label}
+    peaks = UndeterminedPeaks(nodes)
     try:
         for node in nodes:
             node.run_async()
+        peaks.start()
         log(f"[nodes/{label}] {n} nodes up in "
             f"{time.perf_counter() - t_setup:.2f} s (set-up)")
         pump = Pump(proxies, states)
@@ -1489,6 +1555,10 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                        for k in ("build", "delta_scan", "pack")), 1)]
             for s in stats]
     finally:
+        peaks.stop()
+        rec["peak_undetermined"] = max(peaks.peak)
+        rec["suspend_at"] = SUSPEND_LIMIT * n
+        rec["suspended_nodes"] = len(peaks.suspended)
         t_down = time.monotonic()
         svc.shutdown()
         # all at once: each node waits up to 2 s for its gossip routines
@@ -1614,7 +1684,9 @@ def log_arm(rec: dict, name_power: str) -> None:
         f"commit_latency_p50_ms {rec['node0_commit_p50_ms']}; blocks "
         f"identical on every node up to block {rec['common_block']} "
         f"(reached {rec['settle_s']:.1f} s after the load stopped; nodes "
-        f"stopped in {rec['shutdown_s']:.1f} s); {name_power}")
+        f"stopped in {rec['shutdown_s']:.1f} s); peak undetermined events "
+        f"{rec['peak_undetermined']} of the {rec['suspend_at']} at which a "
+        f"node suspends ({rec['suspended_nodes']} suspended); {name_power}")
     if "sweeps" not in rec:
         return
     log(f"[nodes/{rec['arm']}] sweeps applied {rec['sweeps']}, stale "
@@ -1739,6 +1811,63 @@ CLI_BATCHED = 2
 CLI_TARGET_BLOCK = 4
 CLI_PROFILE_S = 1.0
 CLI_TIMEOUT_S = 180.0
+# healthview's two scrapes, this far apart; traceview's records per node
+CLI_HEALTH_WINDOW_S = 2.0
+CLI_TRACE_LIMIT = 64
+
+
+def cli_health(endpoints) -> None:
+    """healthview over the CLI nodes' services, while they run under load:
+    two scrapes CLI_HEALTH_WINDOW_S apart of every node's /metrics, /stats
+    and /suspects. Every node must be up, with its lag behind the cluster's
+    highest round and its round and block rates, and the cluster must have
+    a commit-p50 SLO verdict. Prints the summary line on its own line."""
+    from babble_tpu_torch.obs import healthview
+
+    t0 = time.perf_counter()
+    view = healthview.collect(endpoints, window_s=CLI_HEALTH_WINDOW_S)
+    c = view["cluster"]
+    if c["n_up"] != len(endpoints) or c["n_nodes"] != len(endpoints):
+        raise AssertionError(f"[cli/health] {c['n_up']}/{c['n_nodes']} "
+                             f"nodes up:\n{healthview.render(view)}")
+    for n in view["nodes"]:
+        if (n["lag_rounds"] is None or n["round_rate_per_s"] is None
+                or n["block_rate_per_s"] is None):
+            raise AssertionError(f"[cli/health] node {n['index']} has no "
+                                 f"lag or rates: {n}")
+    if c["slo_verdict"] not in ("ok", "breach"):
+        raise AssertionError(f"[cli/health] no SLO verdict: "
+                             f"{c['slo_verdict']}")
+    log(f"[cli/health] healthview over the {len(endpoints)} node processes "
+        f"({CLI_HEALTH_WINDOW_S} s window, answered in "
+        f"{time.perf_counter() - t0:.1f} s):\n{healthview.render(view)}")
+    print(healthview.summary_line(view), flush=True)
+
+
+def cli_traces(endpoints) -> None:
+    """traceview over the CLI nodes' provenance exports: each node's newest
+    CLI_TRACE_LIMIT records (/traces), merged across nodes; at least one
+    transaction must have reached at least two nodes besides its origin
+    (two hops), with monotone stamps. Prints one such timeline and the
+    per-hop attribution summary."""
+    from babble_tpu_torch.obs import traceview
+
+    exports = [traceview.fetch_node(ep, limit=CLI_TRACE_LIMIT)
+               for ep in endpoints]
+    merged = traceview.merge_all(exports)
+    multi = [m for m in merged if len(m["hops"]) >= 2 and m["monotone"]]
+    if not multi:
+        raise AssertionError(
+            f"[cli/trace] none of {len(merged)} merged transactions reached "
+            f"two nodes besides its origin (records per node: "
+            f"{[len(e['records']) for e in exports]})")
+    best = max(multi, key=lambda m: (m["committed_on"], len(m["hops"])))
+    summary = traceview.attribution_summary(merged)
+    log(f"[cli/trace] traceview over the {len(endpoints)} node processes: "
+        f"{len(merged)} transactions merged from "
+        f"{[len(e['records']) for e in exports]} records, {len(multi)} with "
+        f"two hops or more; one of them:\n{traceview.render(best)}\n"
+        f"[cli/trace] per-hop attribution: {json.dumps(summary)}")
 
 
 def cli_cluster() -> dict:
@@ -1862,6 +1991,10 @@ def cli_cluster() -> dict:
                 f"http://127.0.0.1:{service[0]}/profile?format=torch"
                 f"&seconds={CLI_PROFILE_S}"))
             t_prof = time.perf_counter() - t0 - t_blocks
+            eps = [f"127.0.0.1:{port}" for port in service]
+            cli_health(eps)
+            cli_traces(eps)
+            check_alive()
         finally:
             stop.set()
             loader.join(timeout=10)
@@ -2530,11 +2663,15 @@ def device_verification(seed: int) -> list:
         f"oracle = batch_verify on every verdict ({ver['valid']} valid, "
         f"{ver['invalid']} invalid; oracle {ver['oracle_s']:.1f} s); K3 "
         f"{ver['ms']:.4f} ms, plain {ver['plain_ms']:.1f} ms")
-    at64 = k3_against_plain(items[:64], clock)
-    log(f"[verify] B 64: K3 = plain on the card; K3 {at64['ms']:.4f} ms, "
-        f"shamir_plain {at64['plain_ms']:.1f} ms (one run)")
+    many = items * (VERIFY_TIMED_B[-1] // len(items))
+    timed = {}
+    for B in VERIFY_TIMED_B:
+        timed[B] = ver if B == ver["B"] else k3_against_plain(many[:B], clock)
+        log(f"[verify] B {B}: K3 = plain on the card; K3 "
+            f"{timed[B]['ms']:.4f} ms, shamir_plain "
+            f"{timed[B]['plain_ms']:.1f} ms (one run)")
 
-    rows = verify_times(items * (VERIFY_TIMED_B[-1] // len(items)), clock)
+    rows = verify_times(many, clock)
     wins = [r["B"] for r in rows if r["batch_verify_us"] < r["native_us"]]
     log(f"[verify] batch_verify first beats the native verifier at B "
         f"{wins[0] if wins else 'none'} (SM clock {clock:.0f} MHz)")
@@ -2546,13 +2683,98 @@ def device_verification(seed: int) -> list:
         f"{card['median_ms']:.3f} ms, host {host['median_ms']:.3f} ms")
     by_b = card["signatures"]
     path_b = max(by_b, key=by_b.get)
-    at_path = k3_against_plain(items[:path_b], clock)
+    at_path = timed.get(path_b) or k3_against_plain(items[:path_b], clock)
     log(f"[verify] B {path_b}, the node path's most frequent: K3 = plain on "
         f"the card; K3 {at_path['ms']:.4f} ms, plain "
         f"{at_path['plain_ms']:.1f} ms")
+    labelled = [("node path, most frequent", at_path)] + [
+        ("verdicts" if rec is ver else "timed", rec)
+        for B, rec in timed.items() if B != path_b]
     return [k3_row(label, rec, by_b.get(rec["B"], 0), card["launches"])
-            for label, rec in (("node path, most frequent", at_path),
-                               ("timed", at64), ("verdicts", ver))]
+            for label, rec in labelled]
+
+
+# -- after phase 10: the bench ledger and its regression gate ----------------
+
+
+def _slug(label: str) -> str:
+    return "".join(c if c.isalnum() else "_" for c in label).strip("_")
+
+
+def ledger_gate(arms, k3_rows, name_power: str) -> None:
+    """The port's bench ledger and regression gate on the card's machine:
+    ``host_info()`` must name the card (as torch and nvidia-smi do), torch
+    and its CUDA build, and no jax; one record of phase 8's arms (tx/s,
+    p50/p95) and phase 10's K3 ms is appended five times to a history in a
+    temporary directory (never the repo's), read back with the same
+    results, and gated: the gate passes on the five copies, and fails on
+    ``inject_regression(..., 2.0)`` of them, through ``gate`` and through
+    the command line (``--inject-regression``)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from babble_tpu_torch.obs import ledger, perfgate
+
+    info = ledger.host_info()
+    card = torch.cuda.get_device_name(0)
+    if ("jax" in info or info["card"] != card
+            or info["torch"] != torch.__version__
+            or info["cuda"] != torch.version.cuda
+            or (name_power and not name_power.startswith(card))):
+        raise AssertionError(f"[ledger] host_info {info} does not name the "
+                             f"card {card!r} (nvidia-smi: {name_power!r}), "
+                             f"torch {torch.__version__} and CUDA "
+                             f"{torch.version.cuda}, or names jax")
+    fields = {
+        "nodes": {_slug(r["arm"]): {"tx_per_s": r["tx_per_s"],
+                                    "p50_ms": r["p50_ms"],
+                                    "p95_ms": r["p95_ms"]} for r in arms},
+        "k3": {_slug(r["name"]): {"k3_ms": r["ms"], "batch": r["shape"][0]}
+               for r in k3_rows},
+    }
+    rec = ledger.make_record("chip_smoke", fields,
+                             config={"nodes": NODES, "window_s": WINDOW_S})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ledger_")
+    try:
+        path = os.path.join(tmp, ledger.HISTORY_BASENAME)
+        for _ in range(5):
+            if ledger.append(rec, path) != path:
+                raise AssertionError("[ledger] the ledger is disabled "
+                                     "(BABBLE_BENCH_LEDGER=0)")
+        recs = ledger.read(path)
+        if (len(recs) != 5 or any(ledger.results_map(r)
+                                  != ledger.results_map(rec) for r in recs)):
+            raise AssertionError(f"[ledger] read back {len(recs)} records, "
+                                 "not the five appended")
+        current = recs[-1]
+        base = perfgate.baseline_for(recs, current, perfgate.DEFAULT_WINDOW)
+        verdict = perfgate.gate(current, base)
+        bad = perfgate.inject_regression(current, 2.0, base)
+        bad_verdict = perfgate.gate(bad, base)
+        cli_ok = perfgate.main(["--history", path])
+        cli_bad = perfgate.main(["--history", path, "--inject-regression",
+                                 "--inject-factor", "2.0"])
+        if not verdict["ok"] or verdict["checked"] == 0 or cli_ok != 0:
+            raise AssertionError(f"[ledger] the gate fails five copies of "
+                                 f"one record: {verdict}, exit {cli_ok}")
+        if bad_verdict["ok"] or cli_bad != 1:
+            raise AssertionError(f"[ledger] the gate passes an injected "
+                                 f"regression: {bad_verdict}, exit {cli_bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[ledger] host: {json.dumps(info)}")
+    log(f"[ledger] record ({len(rec['results'])} metrics, results_map "
+        f"round-trips through the history): "
+        f"{json.dumps(ledger.results_map(rec))}")
+    log(f"[ledger] perfgate over five copies: ok, {verdict['checked']} "
+        f"gated metrics, {verdict['baseline_runs']} baseline runs, exit "
+        f"{cli_ok}; inject_regression(2.0): "
+        f"{len(bad_verdict['regressions'])} regressions "
+        f"({sum(r['severity'] == 'hard' for r in bad_verdict['regressions'])}"
+        f" hard), exit {cli_bad}")
 
 
 # Run in a tree of the repo (this one or an earlier commit's) by
@@ -3428,8 +3650,14 @@ def main(argv=None) -> int:
     # Phase 10: device signature verification, K3; counts from 0 for the
     # node path once its nodes are up
     t0 = time.perf_counter()
-    rows += device_verification(args.seed + 10)
+    k3_rows = device_verification(args.seed + 10)
+    rows += k3_rows
     log(f"[verify] phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # the bench ledger and its gate, over phases 8 and 10's numbers
+    t0 = time.perf_counter()
+    ledger_gate(arms, k3_rows, dev["name_power"])
+    log(f"[ledger] {time.perf_counter() - t0:.1f} s")
 
     # Phase 11: the mesh, on virtual shards of the card; counts from 0 for
     # each run

@@ -11,8 +11,8 @@ run when the card is asked for.
   CPU.
 
 Both scans walk the whole package, so every module (``ops/dag.py``,
-``parallel/``, and the node, net, CLI, service and sim stacks included) is
-covered without a list to keep.
+``parallel/``, the node, net, CLI, service and sim stacks, and the
+operator tools under ``obs/`` included) is covered without a list to keep.
 """
 
 from __future__ import annotations
@@ -82,6 +82,9 @@ def test_no_forbidden_imports_in_sources():
     assert {"babble_tpu_torch.__main__", "babble_tpu_torch.cli.__main__",
             "babble_tpu_torch.node.core", "babble_tpu_torch.node.node",
             "babble_tpu_torch.service.service"} <= mods
+    # the operator tools, which the fresh-interpreter test imports too
+    assert {f"babble_tpu_torch.obs.{m}" for m in
+            ("ledger", "perfgate", "traceview", "healthview")} <= mods
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -184,3 +187,74 @@ def test_own_native_crypto_loader():
     assert not PublicKey.from_bytes(jkey.public_key.bytes()).verify(
         bytes(32), jsig
     )
+
+
+def test_native_crypto_search_order(tmp_path, monkeypatch):
+    """The loader searches in the JAX package's order: the checkout's
+    native/ (built into build/native/), then the installed package's
+    _native/ (source and library shipped beside each other), then a
+    user-cache build where the package directory is read-only."""
+    from babble_tpu_torch import native_crypto as nc
+
+    assert [c[0] for c in nc._CANDIDATES] == [
+        os.path.join(ROOT, "native", "secp256k1.cc"),
+        os.path.join(PKG, "_native", "secp256k1.cc"),
+    ]
+    assert nc._CANDIDATES[0][2] is None  # a checkout builds only in itself
+    repo_src, pkg_src = tmp_path / "native.cc", tmp_path / "_native.cc"
+    cands = [(str(repo_src), str(tmp_path / "build" / "lib.so"), None),
+             (str(pkg_src), str(tmp_path / "_native" / "lib.so"),
+              str(tmp_path / "cache" / "lib.so"))]
+    assert nc._locate(cands) == cands[0]  # no source: the checkout's pair
+    pkg_src.write_text("//")
+    assert nc._locate(cands) == cands[1]
+    repo_src.write_text("//")
+    assert nc._locate(cands) == cands[0]
+
+    # an installed package whose directory is read-only: the build at the
+    # package's path fails, the user cache's succeeds and is loaded
+    built, loaded = [], []
+
+    def fake_build_at(path):
+        built.append(path)
+        if path == cands[1][1]:
+            return False
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        open(path, "w").close()
+        return True
+
+    class FakeLib:
+        def __init__(self, path):
+            loaded.append(path)
+            self.bt_verify_batch = self.bt_sign = self.bt_pubkey = (
+                lambda *a: 0)
+
+    monkeypatch.setattr(nc, "_build_at", fake_build_at)
+    monkeypatch.setattr(nc.ctypes, "CDLL", FakeLib)
+    for attr, value in zip(("_SRC", "_SO", "_SO_FALLBACK"), cands[1]):
+        monkeypatch.setattr(nc, attr, value)
+    monkeypatch.setattr(nc, "_tried", False)
+    monkeypatch.setattr(nc, "_lib", None)
+    assert nc._load() is not None
+    assert built == [cands[1][1], cands[1][2]]
+    assert loaded == [cands[1][2]] and nc._SO == cands[1][2]
+
+    # the next process finds the user-cache build fresh and loads it
+    # without building
+    built.clear()
+    loaded.clear()
+    monkeypatch.setattr(nc, "_SO", cands[1][1])
+    monkeypatch.setattr(nc, "_tried", False)
+    monkeypatch.setattr(nc, "_lib", None)
+    assert nc._load() is not None
+    assert built == [] and loaded == [cands[1][2]]
+
+    # a checkout never falls back to the user cache
+    for attr, value in zip(("_SRC", "_SO", "_SO_FALLBACK"), cands[0]):
+        monkeypatch.setattr(nc, attr, value)
+    monkeypatch.setattr(nc, "_build_at", lambda path: built.append(path)
+                        or False)
+    monkeypatch.setattr(nc, "_tried", False)
+    monkeypatch.setattr(nc, "_lib", None)
+    assert nc._load() is None
+    assert built == [cands[0][1]]

@@ -15,6 +15,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
@@ -172,12 +173,60 @@ def test_profile_hook_torch_and_jax_formats(tmp_path, monkeypatch):
     finally:
         svc.shutdown()
         nodes[0].shutdown()
-    assert body["seconds"] == 0.2
+    assert body["seconds"] == 0.2 and body["window_s"] >= 0.2
+    assert body["accel_sweeps"] == [0, 0]  # no offload on this node
     assert body["activities"] == ["CPU"]
     assert body["trace_file"].startswith(
         str(tmp_path / "babble_tpu_torch_profile"))
     with open(body["trace_file"]) as f:
         assert "traceEvents" in json.load(f)
+
+
+def test_profile_window_reports_the_node_sweeps(cpu_offload_env):
+    """GET /profile?format=torch on a node whose offload sweeps (on the CPU
+    here) answers with the node's accel_sweeps at the window's start and
+    end: within a few short captures under load the count advances, and
+    never goes back."""
+    nodes, proxies = make_nodes(3, InmemNetwork(), accelerator=True,
+                                accelerator_device="cpu")
+    svc = Service("127.0.0.1:0", nodes[0])
+    svc.serve_async()
+    stop = threading.Event()
+
+    def load():
+        i = 0
+        while not stop.is_set():
+            proxies[i % 3].submit_tx(f"tx {i}".encode())
+            i += 1
+            time.sleep(0.01)
+
+    loader = threading.Thread(target=load, daemon=True)
+    windows = []
+    try:
+        for n in nodes:
+            n.run_async()
+        loader.start()
+        for _ in range(20):
+            with urllib.request.urlopen(
+                f"http://{svc.bind_addr}/profile?format=torch&seconds=0.5",
+                timeout=60,
+            ) as resp:
+                body = json.loads(resp.read())
+            os.remove(body["trace_file"])
+            windows.append((body["accel_sweeps"], body["window_s"]))
+            if body["accel_sweeps"][1] > body["accel_sweeps"][0]:
+                break
+    finally:
+        stop.set()
+        loader.join(timeout=10)
+        svc.shutdown()
+        for n in nodes:
+            n.shutdown()
+    assert windows[-1][0][1] > windows[-1][0][0], windows
+    for (first, last), window_s in windows:
+        assert 0 <= first <= last and window_s >= 0.5, windows
+    for ((_, last), _), ((first, _), _) in zip(windows, windows[1:]):
+        assert first >= last, windows
 
 
 def test_mixed_cluster_offload_and_oracle_agree(cpu_offload_env):
@@ -221,6 +270,22 @@ def test_unported_modes_refuse_to_start(monkeypatch, caplog):
     nodes, _ = make_nodes(1, InmemNetwork(), accelerator=True,
                           accelerator_device="cpu")
     assert not nodes[0].core._device_verify()
+
+
+def test_cli_mesh_help_says_the_mesh_is_ported():
+    """--accelerator-mesh takes the cards (Node._attach_mesh): its help
+    text, and the Config field's comment, no longer call it unported."""
+    import inspect
+
+    from babble_tpu_torch.cli import main as cli_main
+    from babble_tpu_torch.config import config as config_mod
+
+    run = next(a for a in cli_main.build_parser()._subparsers._group_actions
+               if a.dest == "cmd").choices["run"]
+    (mesh,) = [a for a in run._actions if a.dest == "accelerator_mesh"]
+    assert "not ported" not in mesh.help and "refused" not in mesh.help
+    assert "CUDA cards" in mesh.help
+    assert "not ported" not in inspect.getsource(config_mod)
 
 
 def _cli(*args, env=None, timeout=120):
