@@ -72,7 +72,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    services must find every node up, with its lag and round and block
    rates, and give a commit-p50 SLO verdict (its summary line is printed),
    and ``obs.traceview`` over their ``/traces`` must merge a transaction
-   with hops on two nodes or more;
+   with hops on two nodes or more; then the client tier in front of them
+   (each node with ``--client-listen``): ``python -m
+   babble_tpu_torch.client.gateway --processes`` with 4 shard processes,
+   forwarding to two nodes and tailing a third's hub, and a
+   ``SubscriberSwarm`` of 2000 subscribers (the soft open-files limit
+   raised to the hard one, and the count cut to fit if it must be) over
+   the four nodes' hubs and the gateway's, 5% of them stalled, under ~1
+   KiB transactions through the gateway and straight at the nodes: every
+   healthy subscriber's blocks in order with no gap, every stalled one
+   shed, every sampled transaction's ``GET /proof`` at the gateway
+   verified offline against the validator set alone (a tampered copy
+   rejected), a ``ReadReplica`` from a node's checkpoint serving a proof
+   itself, and every node still sweeping on the card with no fallback;
+   it prints the subscribers attached, healthy and shed, gaps, the proofs
+   verified, push latency p50/p95, proof latency p50 and the gateway's
+   final ``stats()``;
 10. device signature verification (K3, ``ops/verify.py``): the cooperative
    field layer on the card (``kernels.field_ops``) at every group size
    equal to Python integers at the edges, on non-canonical add and sub
@@ -114,10 +129,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    4-shard mesh, one wave serving both); and the collectives on 2, 4 and 8
    shards and sharded_batched_pipeline at (dp 2, sp 2) and (dp 1, sp 4)
    equal to their single-device counterparts, with K2's block-form
-   launches counted by shape.
+   launches counted by shape;
+12. the mobile binding, in a fresh process: two ``mobile.MobileNode``s with
+   ``accelerator=True`` over loopback TCP (OS-assigned ports, min_window
+   0, no batcher) to block 3, with identical block JSON at every index
+   both hosts received, node 0's chain equal to a host replay of its own
+   events through the same app, device sweeps, no fallback, and K1's
+   launches equal to the nodes' device sweeps.
 
-For each live path (the replays of phases 3 and 4, and the node cluster of
-phase 8: its batched waves and its per-node sweeps), K1 is also held
+For each live path (the replays of phases 3 and 4, the node cluster of
+phase 8: its batched waves and its per-node sweeps, and phase 12's mobile
+pair), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
 often; K3 likewise at the batch size phase 10's cluster gave it most
 often. The line before the
@@ -1328,11 +1350,12 @@ def check_cluster_blocks(label, nodes) -> int:
     return common
 
 
-def replay_own_events(label, node) -> int:
+def replay_own_events(label, node, app=None) -> int:
     """Node ``node``'s chain against a host-oracle replay of its own events
     in its topological order, through a fresh port Hashgraph with no
-    offload and the dummy app's commit: every block body hash equal.
-    Returns the number of events replayed."""
+    offload and the node's app's commit (``app``, a proxy handler; the
+    dummy app by default): every block body hash equal. Returns the number
+    of events replayed."""
     from babble_tpu_torch.dummy.state import State as DummyState
     from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
 
@@ -1343,7 +1366,7 @@ def replay_own_events(label, node) -> int:
          for eh in store.participant_events(pk, -1)),
         key=lambda e: e.topological_index,
     )
-    app = DummyState()
+    app = app or DummyState()
 
     def commit(block):
         resp = app.commit_handler(block)
@@ -1870,6 +1893,379 @@ def cli_traces(endpoints) -> None:
         f"[cli/trace] per-hop attribution: {json.dumps(summary)}")
 
 
+# phase 9's client tier: a gateway process, a subscriber swarm over the
+# nodes' hubs and the gateway's, proofs, a replica from a checkpoint
+CLIENT_SUBS = 2000  # bench.py --clients' default
+# the reference clientsmoke stalls 5 of its 100 subscribers
+CLIENT_STALL_FRAC = 0.05
+# a fifth of the swarm rides the gateway's hub, the rest the nodes'; the
+# stalled ones ride the nodes' hubs only: the gateway's command line has
+# no send-buffer flag, so its hub keeps the OS's loopback buffer (MBs),
+# and a stalled socket there fills only after more stream than a run sends
+CLIENT_GW_SHARE = 0.2
+CLIENT_GW_TXS = 60
+CLIENT_DIRECT_TXS = 40
+CLIENT_TX_FILL = 1000  # about 1 KiB a payload
+CLIENT_SAMPLE = 12
+CLIENT_DEADLINE_S = 60.0
+# sockets this process holds besides the swarm's
+CLIENT_FD_MARGIN = 256
+# the nodes' hub settings (the reference clientsmoke's): a small kernel send
+# buffer and frame queue, so that a stalled subscriber backs up into the
+# hub's own queue and is shed within the run
+CLIENT_HUB_FLAGS = ["--sub-queue", "32", "--sub-stall-timeout", "3",
+                    "--sub-sndbuf", "8192"]
+# the healthy subscribers a hub may shed: the swarm's one reader thread can
+# fall behind a hub's stall timer on a loaded host (the reference's bound)
+CLIENT_HEALTHY_SHED_MAX = 0.1
+
+
+def raise_nofile(want: int) -> int:
+    """Raise this process's soft RLIMIT_NOFILE to its hard limit (nothing
+    outside the process changes) and print both. Returns how many of
+    ``want`` subscriber sockets fit, printing the cut when fewer do."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    new = hard if hard != resource.RLIM_INFINITY else max(
+        soft, want + CLIENT_FD_MARGIN)
+    if new != soft:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (new, hard))
+    fits = min(want, new - CLIENT_FD_MARGIN)
+    log(f"[cli/client] RLIMIT_NOFILE soft {soft} -> {new}, hard "
+        f"{'unlimited' if hard == resource.RLIM_INFINITY else hard}"
+        + (f"; CUT: {fits} subscribers, not {want}" if fits < want else ""))
+    return fits
+
+
+def _closed_by_hub(sock) -> bool:
+    """Whether the hub closed a stalled subscriber's socket: its buffered
+    frames, then end of stream or a reset, within 5 s."""
+    import socket
+
+    sock.setblocking(True)
+    sock.settimeout(5.0)
+    try:
+        while sock.recv(1 << 16):
+            pass
+        return True
+    except ConnectionResetError:
+        return True
+    except (socket.timeout, TimeoutError):
+        return False
+
+
+def client_tier(tmp: str, peers_path: str, hubs, proxies, services,
+                node_stats, check_alive) -> dict:
+    """Phase 9's client tier in front of the CLI nodes (docs/clients.md):
+    ``python -m babble_tpu_torch.client.gateway --processes`` with 4 shard
+    processes, forwarding to nodes 0-1 and tailing node 2's hub; a
+    SubscriberSwarm of CLIENT_SUBS over the four nodes' hubs and the
+    gateway's (CLIENT_STALL_FRAC of them stalled); ~1 KiB transactions
+    through the gateway's SubmitTx and directly at nodes 2-3. Checks: every
+    healthy subscriber's blocks in order with no gap, every stalled one
+    shed, every sampled transaction's GET /proof at the gateway verified
+    offline against the validator set alone (a tampered copy rejected), a
+    ReadReplica spun up from a node's checkpoint serving a proof itself,
+    the gateway's final stats(), and every node still sweeping on the card
+    with no fallback."""
+    import base64
+    import os
+    import signal
+    import subprocess
+    import urllib.error
+
+    from babble_tpu_torch.client.proofs import txid_hex
+    from babble_tpu_torch.client.replica import ReadReplica
+    from babble_tpu_torch.client.swarm import SubscriberSwarm
+    from babble_tpu_torch.client.verifier import (
+        ProofError,
+        verify_checkpoint,
+        verify_proof,
+    )
+    from babble_tpu_torch.proxy.socket_proxy import JsonRpcClient
+
+    t_start = time.perf_counter()
+    n_subs = raise_nofile(CLIENT_SUBS)
+    n_gw = int(n_subs * CLIENT_GW_SHARE)
+    n_node = n_subs - n_gw
+    n_stalled = int(round(n_subs * CLIENT_STALL_FRAC))
+    with open(peers_path) as f:
+        validators = json.load(f)
+    before = [node_stats(i) for i in range(len(hubs))]
+    gw_listen, gw_sub, gw_http = (f"127.0.0.1:{p}" for p in free_ports(3))
+    here = os.path.dirname(os.path.abspath(__file__))
+    gw_err = open(os.path.join(tmp, "gateway.err"), "w")
+    # its own session: its spawned shard processes die with it on a failure
+    gw = subprocess.Popen(
+        [sys.executable, "-m", "babble_tpu_torch.client.gateway",
+         "--forward", ",".join(proxies[:2]), "--upstream", hubs[2],
+         "--peers", peers_path, "--listen", gw_listen,
+         "--sub-listen", gw_sub, "--http", gw_http, "--shards", "4",
+         "--processes"],
+        stdout=subprocess.PIPE, stderr=gw_err, text=True, cwd=here,
+        start_new_session=True)
+    swarms, replica, rpcs = [], None, []
+
+    def gw_alive() -> None:
+        check_alive()
+        if gw.poll() is not None:
+            gw_err.flush()
+            with open(gw_err.name) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"[cli/client] the gateway exited with "
+                                 f"{gw.returncode}:\n{tail}")
+
+    try:
+        # the gateway's replica tails node 2 from block 0: the swarm
+        # subscribes at the live tail once it has caught up (sealing trails
+        # the commits by a block or two)
+        head = int(before[2]["last_block_index"]) - 2
+        deadline = time.monotonic() + CLIENT_DEADLINE_S
+        while True:
+            gw_alive()
+            try:
+                gw_replica = json.loads(http_get(f"http://{gw_http}/stats",
+                                                 timeout=5))
+                if gw_replica["last_verified"] >= max(0, head):
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[cli/client] the gateway's replica "
+                                     f"did not reach block {head}")
+            time.sleep(0.2)
+        t_gw = time.perf_counter() - t_start
+
+        node_swarm = SubscriberSwarm(hubs, n_node, start=-1,
+                                     stall_frac=n_stalled / n_node)
+        gw_swarm = SubscriberSwarm([gw_sub], n_gw, start=-1)
+        for sw in (node_swarm, gw_swarm):
+            swarms.append(sw)
+            sw.start_all()
+            if sw.connect_errors:
+                raise AssertionError(f"[cli/client] {sw.connect_errors} "
+                                     "subscribers could not connect")
+        # every node hub holds its share of the swarm, node 2's the
+        # gateway's upstream subscription too
+        while (sum(int(node_stats(i)["client_subscribers"])
+                   for i in range(len(hubs))) != n_node + 1
+               or not all(m.subscribed for sw in swarms
+                          for m in sw.healthy())):
+            gw_alive()
+            if time.monotonic() > deadline:
+                raise AssertionError("[cli/client] the swarm did not attach")
+            time.sleep(0.2)
+        t_attach = time.perf_counter() - t_start
+
+        gw_rpc = JsonRpcClient(gw_listen, timeout=30.0)
+        direct = [JsonRpcClient(a, timeout=30.0) for a in proxies[2:4]]
+        rpcs += [gw_rpc] + direct
+        submitted = {}  # tx -> submit time
+        for i in range(CLIENT_GW_TXS + CLIENT_DIRECT_TXS):
+            via_gw = i < CLIENT_GW_TXS
+            tx = (f"{'gateway' if via_gw else 'direct'} tx {i} ".encode()
+                  + b"x" * CLIENT_TX_FILL)
+            t = time.monotonic()
+            rpc = gw_rpc if via_gw else direct[i % 2]
+            v = rpc.call("Babble.SubmitTx", base64.b64encode(tx).decode())
+            if v not in ("accepted", True):
+                raise AssertionError(f"[cli/client] tx {i} "
+                                     f"({'gateway' if via_gw else 'direct'})"
+                                     f": verdict {v!r}")
+            submitted[tx] = t
+        txs = list(submitted)
+        dup = gw_rpc.call("Babble.SubmitTx",
+                          base64.b64encode(txs[0]).decode())
+        if dup not in ("duplicate", "already_committed"):
+            raise AssertionError(f"[cli/client] a duplicate through the "
+                                 f"gateway got {dup!r}")
+        t_load = time.monotonic()
+        deadline = t_load + CLIENT_DEADLINE_S
+
+        # every sampled transaction's proof from the gateway, verified
+        # offline against the validator set alone
+        sample = txs[::max(1, len(txs) // CLIENT_SAMPLE)][:CLIENT_SAMPLE]
+        pending = {txid_hex(tx): tx for tx in sample}
+        proof_s, get_ms = [], []
+        while pending:
+            gw_alive()
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[cli/client] {len(pending)} of {len(sample)} sampled "
+                    f"transactions have no proof at the gateway "
+                    f"{CLIENT_DEADLINE_S} s after the load")
+            for tid, tx in list(pending.items()):
+                t0 = time.perf_counter()
+                try:
+                    proof = json.loads(http_get(
+                        f"http://{gw_http}/proof/{tid}", timeout=5))
+                except urllib.error.HTTPError as err:
+                    if err.code != 404:
+                        raise
+                    continue
+                get_ms.append(1e3 * (time.perf_counter() - t0))
+                if verify_proof(proof, validators)["tx"] != tx:
+                    raise AssertionError("[cli/client] a proof names "
+                                         "another transaction")
+                evil = b"not the committed tx"
+                try:
+                    verify_proof({**proof, "txid": txid_hex(evil),
+                                  "tx": base64.b64encode(evil).decode()},
+                                 validators)
+                except ProofError:
+                    pass
+                else:
+                    raise AssertionError("[cli/client] a tampered proof "
+                                         "verified")
+                proof_s.append(time.monotonic() - submitted[tx])
+                del pending[tid]
+            time.sleep(0.1)
+
+        # every stalled subscriber shed by its hub
+        while sum(int(node_stats(i)["client_shed_subscribers"])
+                  for i in range(len(hubs))) < n_stalled:
+            gw_alive()
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[cli/client] the hubs shed "
+                    f"{[node_stats(i)['client_shed_subscribers'] for i in range(len(hubs))]}"
+                    f" subscribers, not the {n_stalled} stalled")
+            time.sleep(0.2)
+        time.sleep(1.0)  # the stream's tail reaches the swarm
+        stalled = [m for m in node_swarm.members if m.stalled]
+        not_shed = [m.idx for m in stalled if not _closed_by_hub(m.sock)]
+        if len(stalled) != n_stalled or not_shed:
+            raise AssertionError(f"[cli/client] stalled subscribers not "
+                                 f"shed: {not_shed} of {len(stalled)}")
+        sw_stats = [sw.stats() for sw in swarms]
+        healthy = [m for sw in swarms for m in sw.healthy()]
+        shed_healthy = [m for m in healthy if m.closed]
+        gaps = sum(st["gaps"] for st in sw_stats)
+        starved = [m.idx for m in healthy if not m.closed and m.blocks == 0]
+        if (gaps or starved or len(shed_healthy)
+                > CLIENT_HEALTHY_SHED_MAX * len(healthy)):
+            raise AssertionError(
+                f"[cli/client] gaps {gaps}, healthy subscribers with no "
+                f"block {len(starved)}, healthy shed {len(shed_healthy)} of "
+                f"{len(healthy)}: {sw_stats}")
+
+        # a checkpoint spins up a verifying read replica serving a proof
+        cp = json.loads(http_get(f"http://{services[0]}/checkpoint"))
+        anchor, _frame = verify_checkpoint(cp, validators)
+        replica = ReadReplica(hubs[3], validators, checkpoint=cp,
+                              http_addr="127.0.0.1:0")
+        replica.start()
+        probe = b"replica probe " + b"z" * CLIENT_TX_FILL
+        direct[1].call("Babble.SubmitTx", base64.b64encode(probe).decode())
+        t_probe = time.monotonic()
+        while True:
+            gw_alive()
+            try:
+                proof = json.loads(http_get(
+                    f"http://{replica.http_addr}/proof/{txid_hex(probe)}",
+                    timeout=5))
+                break
+            except urllib.error.HTTPError as err:
+                if err.code != 404:
+                    raise
+            if time.monotonic() > deadline:
+                raise AssertionError("[cli/client] the replica from the "
+                                     "checkpoint served no proof")
+            time.sleep(0.1)
+        replica_s = time.monotonic() - t_probe
+        if (verify_proof(proof, validators)["tx"] != probe
+                or replica.rejected_blocks):
+            raise AssertionError(f"[cli/client] replica: {replica.stats()}")
+        replica_stats = replica.stats()
+
+        gw.send_signal(signal.SIGTERM)
+        out, _ = gw.communicate(timeout=30)
+        if gw.returncode != 0:
+            raise AssertionError(f"[cli/client] the gateway exited with "
+                                 f"{gw.returncode} on SIGTERM")
+        gw_stats = json.loads(out.strip().splitlines()[-1])
+        if (gw_stats["submitted"] != CLIENT_GW_TXS + 1
+                or gw_stats["forward_unavailable"]
+                or gw_stats["replica"]["rejected_blocks"]
+                or len(gw_stats["workers"]) != 4):
+            raise AssertionError(f"[cli/client] gateway stats {gw_stats}")
+
+        after = [node_stats(i) for i in range(len(hubs))]
+        for i, (b, a) in enumerate(zip(before, after)):
+            if (a["consensus_engine"] != "device" or a["accel_kernel"] != "cuda"
+                    or int(a["accel_sweeps"]) <= int(b["accel_sweeps"])
+                    or int(a["accel_fallbacks"]) != 0):
+                raise AssertionError(
+                    f"[cli/client] node {i} after the client tier: engine "
+                    f"{a['consensus_engine']}, kernel {a['accel_kernel']}, "
+                    f"sweeps {b['accel_sweeps']} -> {a['accel_sweeps']}, "
+                    f"fallbacks {a['accel_fallbacks']}")
+        check_alive()
+        lat_ms = {name: sorted(1e3 * x for m in sw.healthy()
+                               for x in m.latencies)
+                  for name, sw in (("nodes", node_swarm),
+                                   ("gateway", gw_swarm))}
+        if not all(lat_ms.values()):
+            raise AssertionError(f"[cli/client] no push latency sample: "
+                                 f"{ {k: len(v) for k, v in lat_ms.items()} }")
+        rec = {
+            "subscribers": n_subs, "attached": sum(
+                st["subscribers"] for st in sw_stats),
+            "healthy": len(healthy) - len(shed_healthy),
+            "healthy_shed": len(shed_healthy), "stalled_shed": len(stalled),
+            "gaps": gaps,
+            "blocks_received": sum(st["blocks_received"] for st in sw_stats),
+            "proofs_verified": len(sample), "sampled": len(sample),
+            "push_ms": {k: [_pct(v, 0.5), _pct(v, 0.95), len(v)]
+                        for k, v in lat_ms.items()},
+            "proof_s_p50": _pct(sorted(proof_s), 0.5),
+            "proof_get_ms_p50": _pct(sorted(get_ms), 0.5),
+            "replica_s": replica_s, "anchor": anchor.index(),
+            "sweeps": [int(a["accel_sweeps"]) - int(b["accel_sweeps"])
+                       for b, a in zip(before, after)],
+            "seconds": time.perf_counter() - t_start,
+        }
+        log(f"[cli/client] gateway process (4 shard processes) up, its "
+            f"replica verifying, {t_gw:.1f} s in; {rec['attached']} of "
+            f"{n_subs} subscribers attached ({n_node} over the 4 nodes' "
+            f"hubs, {n_stalled} of them stalled; {n_gw} on the gateway's "
+            f"hub) {t_attach:.1f} s in; {len(txs)} transactions of "
+            f"{len(txs[0])} bytes ({CLIENT_GW_TXS} through the gateway, "
+            f"{CLIENT_DIRECT_TXS} direct), a duplicate answered {dup!r}")
+        log(f"[cli/client] subscribers: healthy {rec['healthy']}, healthy "
+            f"shed {rec['healthy_shed']}, stalled shed {len(stalled)} of "
+            f"{n_stalled}; gaps {gaps}; blocks received "
+            f"{rec['blocks_received']}; proofs verified offline "
+            f"{len(sample)} of {len(sample)} sampled (tampered copies "
+            f"rejected); push latency (hub stamp to receipt) p50 / p95 ms: "
+            + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} ({v[2]} samples)"
+                        for k, v in rec["push_ms"].items() if v[2])
+            + f"; proof latency (submit to verified proof at the gateway) "
+            f"p50 {rec['proof_s_p50']:.3f} s, GET /proof p50 "
+            f"{rec['proof_get_ms_p50']:.2f} ms; replica from the checkpoint "
+            f"(anchor block {rec['anchor']}) served a fresh proof "
+            f"{replica_s:.2f} s after its submit, rejected blocks 0; node "
+            f"sweeps during the tier {rec['sweeps']}, fallbacks 0")
+        log(f"[cli/client] replica stats: {json.dumps(replica_stats)}")
+        log(f"[cli/client] gateway stats(): {json.dumps(gw_stats)}")
+        log(f"[cli/client] client tier: {rec['seconds']:.1f} s")
+        return rec
+    finally:
+        for sw in swarms:
+            sw.stop()
+        if replica is not None:
+            replica.close()
+        for rpc in rpcs:
+            rpc.close()
+        try:
+            os.killpg(gw.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        gw.wait(timeout=30)
+        gw_err.close()
+
+
 def cli_cluster() -> dict:
     """CLI_NODES ``python -m babble_tpu_torch run --accelerator`` processes
     on the card, each with its own datadir (keygen, peers.json), service,
@@ -1899,9 +2295,9 @@ def cli_cluster() -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     n, target_block = CLI_NODES, CLI_TARGET_BLOCK
-    ports = free_ports(4 * n)
-    gossip, service, proxy, client = (ports[i * n:(i + 1) * n]
-                                      for i in range(4))
+    ports = free_ports(5 * n)
+    gossip, service, proxy, client, hub = (ports[i * n:(i + 1) * n]
+                                           for i in range(5))
     keys = [generate_key() for _ in range(n)]
     peers = [{"NetAddr": f"127.0.0.1:{gossip[i]}",
               "PubKeyHex": k.public_key.hex(), "Moniker": f"c{i}"}
@@ -1943,6 +2339,8 @@ def cli_cluster() -> dict:
                  "--service-listen", f"127.0.0.1:{service[i]}",
                  "--proxy-listen", f"127.0.0.1:{proxy[i]}",
                  "--client-connect", f"127.0.0.1:{client[i]}",
+                 "--client-listen", f"127.0.0.1:{hub[i]}",
+                 *CLIENT_HUB_FLAGS,
                  "--heartbeat", str(HEARTBEAT_S),
                  "--slow-heartbeat", str(SLOW_HEARTBEAT_S),
                  "--moniker", f"c{i}", "--log", "error"],
@@ -2060,6 +2458,10 @@ def cli_cluster() -> dict:
             f"{summary['kernels']} CUDA kernel records, "
             f"{summary['k1_kernels']} of them K1, device busy "
             f"{summary['busy_share']:.1%}")
+        rec["client"] = client_tier(
+            tmp, os.path.join(tmp, "c0", "peers.json"),
+            [f"127.0.0.1:{p}" for p in hub], [f"127.0.0.1:{p}" for p in proxy],
+            [f"127.0.0.1:{p}" for p in service], stats, check_alive)
         return rec
     finally:
         for p in procs:
@@ -3339,6 +3741,184 @@ def k2_tile_table(seed: int) -> list:
     return recs
 
 
+# -- phase 12: the mobile binding, in a fresh process ------------------------
+
+MOBILE_TARGET_BLOCK = 3
+MOBILE_TIMEOUT_S = 120.0
+# two validators' windows stay below the offload's default min_window, and
+# without the batcher K1's launches are the nodes' own device sweeps
+MOBILE_ENV = {"BABBLE_ACCEL_MIN_WINDOW": "0", "BABBLE_ACCEL_BATCH": "0"}
+
+
+def mobile_state_hash(block_json: str) -> bytes:
+    """The host app's commit: a state hash over the block's index and
+    transactions, from the JSON that crossed the binding."""
+    import hashlib
+
+    body = json.loads(block_json)["Body"]
+    return hashlib.sha256(
+        (str(body["Index"]) + str(body["Transactions"])).encode()).digest()
+
+
+def mobile_child() -> None:
+    """Two ``MobileNode``s with ``accelerator=True`` (the card) over
+    loopback TCP on OS-assigned ports, fed transactions through
+    ``submit_tx`` until both pass MOBILE_TARGET_BLOCK. Checks: identical
+    block JSON at every index both hosts received, node 0's chain equal to
+    a host replay of its own events through the same app, device sweeps
+    and no fallback, and K1's launches (counted from 0 before the nodes
+    start) equal to the device sweeps the nodes launched. Prints one
+    ``MOBILE`` line of JSON for the parent."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.mobile import MobileNode, _MobileApp
+    from babble_tpu_torch.ops import kernels
+
+    kernels.build()
+    torch.cuda.init()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mobile_")
+    gossip, service = free_ports(2), free_ports(2)
+    keys = [generate_key() for _ in range(2)]
+    peers = [{"NetAddr": f"127.0.0.1:{port}",
+              "PubKeyHex": k.public_key.hex(), "Moniker": f"m{i}"}
+             for i, (k, port) in enumerate(zip(keys, gossip))]
+    committed, errors = [{}, {}], []
+
+    def handler(i):
+        def commit(block_json: str) -> bytes:
+            committed[i][json.loads(block_json)["Body"]["Index"]] = block_json
+            return mobile_state_hash(block_json)
+        return commit
+
+    kernels.reset_launch_counts()
+    nodes = []
+    try:
+        t0 = time.perf_counter()
+        for i, k in enumerate(keys):
+            dd = os.path.join(tmp, f"m{i}")
+            os.makedirs(dd)
+            SimpleKeyfile(os.path.join(dd, "priv_key")).write_key(k)
+            for fn in ("peers.json", "peers.genesis.json"):
+                with open(os.path.join(dd, fn), "w") as f:
+                    json.dump(peers, f)
+            nodes.append(MobileNode(
+                dd, handler(i), exception_handler=errors.append,
+                bind_addr=f"127.0.0.1:{gossip[i]}",
+                service_addr=f"127.0.0.1:{service[i]}",
+                heartbeat_timeout=HEARTBEAT_S,
+                slow_heartbeat_timeout=SLOW_HEARTBEAT_S,
+                log_level="error", moniker=f"m{i}", accelerator=True))
+        t_up = time.perf_counter() - t0
+        for n in nodes:
+            n.run()
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + MOBILE_TIMEOUT_S
+        j = 0
+        while not all(n.get_last_block_index() >= MOBILE_TARGET_BLOCK
+                      for n in nodes):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[mobile] last blocks "
+                    f"{[n.get_last_block_index() for n in nodes]} after "
+                    f"{MOBILE_TIMEOUT_S} s; errors {errors}")
+            nodes[j % 2].submit_tx(f"mobile tx {j}".encode())
+            j += 1
+            time.sleep(0.01)
+        t_blocks = time.perf_counter() - t0
+        stats = [json.loads(n.get_stats()) for n in nodes]
+    finally:
+        stoppers = [threading.Thread(target=n.shutdown) for n in nodes]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join(timeout=120)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["member_ss_counts"]
+    for n in nodes:
+        with n._engine.node.core_lock:  # a sync still in flight finishes
+            pass
+    accels = [n._engine.node.core.hg.accel for n in nodes]
+    applied = sum(a.sweeps for a in accels)
+    stale = sum(a.stale_drops for a in accels)
+    in_flight = sum(a.busy() for a in accels)
+    rec = {
+        "blocks": [n.get_last_block_index() for n in nodes],
+        "txs_submitted": j, "launches": launches, "sweeps": applied,
+        "stale_drops": stale, "in_flight": in_flight,
+        "fallbacks": sum(a.fallbacks for a in accels),
+        "buckets": [[list(k), v] for k, v in
+                    sum((a.buckets for a in accels), Counter()).items()],
+        "seconds_up": t_up, "seconds_to_block": t_blocks,
+    }
+    common = sorted(set(committed[0]) & set(committed[1]))
+    if len(common) < MOBILE_TARGET_BLOCK + 1 or errors:
+        raise AssertionError(f"[mobile] the hosts received blocks "
+                             f"{sorted(committed[0])} and "
+                             f"{sorted(committed[1])}; errors {errors}")
+    differ = [bi for bi in common if committed[0][bi] != committed[1][bi]]
+    if differ:
+        raise AssertionError(f"[mobile] block JSON differs at {differ}")
+    for i, st in enumerate(stats):
+        if (st["consensus_engine"] != "device" or st["accel_kernel"] != "cuda"
+                or st["accel_sweeps"] <= 0 or st["accel_fallbacks"]):
+            raise AssertionError(
+                f"[mobile] node {i}: engine {st['consensus_engine']}, kernel "
+                f"{st['accel_kernel']}, sweeps {st['accel_sweeps']}, "
+                f"fallbacks {st['accel_fallbacks']}")
+    if rec["fallbacks"] or launches != applied + stale + in_flight:
+        raise AssertionError(
+            f"[mobile] K1 launches {launches} != device sweeps launched "
+            f"(applied {applied}, stale {stale}, in flight {in_flight}); "
+            f"fallbacks {rec['fallbacks']}")
+    t0 = time.monotonic()
+    rec["replayed_events"] = replay_own_events(
+        "mobile", nodes[0]._engine.node,
+        app=_MobileApp(mobile_state_hash, None, None))
+    rec["replay_s"] = time.monotonic() - t0
+    rec["common_blocks"] = len(common)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[mobile] two MobileNodes (accelerator=True, the card) up in "
+        f"{t_up:.1f} s, both past block {MOBILE_TARGET_BLOCK} in "
+        f"{t_blocks:.1f} s ({j} transactions through submit_tx); identical "
+        f"block JSON at all {len(common)} common indexes; node 0's chain "
+        f"equal to a host replay of its {rec['replayed_events']} events "
+        f"({rec['replay_s']:.2f} s); device sweeps {applied} (+{stale} "
+        f"stale, {in_flight} in flight) = K1 launches {launches}; "
+        f"fallbacks 0")
+    print("MOBILE " + json.dumps(rec), flush=True)
+
+
+def mobile_fresh() -> dict:
+    """``mobile_child`` in a fresh interpreter with MOBILE_ENV. Returns its
+    record, the buckets as a Counter of (W, E, P, S, R)."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.mobile_child()"],
+        cwd=here, env={**os.environ, **MOBILE_ENV}, capture_output=True,
+        text=True, timeout=300,
+    )
+    lines = proc.stdout.splitlines()
+    sys.stdout.write("".join(ln + "\n" for ln in lines
+                             if not ln.startswith("MOBILE ")))
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"mobile process exit {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    rec = json.loads([ln for ln in lines if ln.startswith("MOBILE ")][0][7:])
+    rec["buckets"] = Counter({tuple(k): v for k, v in rec["buckets"]})
+    return rec
+
+
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
 _AB_CHILD = """
@@ -3665,6 +4245,15 @@ def main(argv=None) -> int:
     rows += mesh_phase(args.seed + 200, mesh_streams, single_64,
                        batch_arrays, batch_sm)
     log(f"[mesh] phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # Phase 12: the mobile binding, two MobileNodes on the card in a fresh
+    # process; K1 counted from 0 there before the nodes start
+    t0 = time.perf_counter()
+    mobile = mobile_fresh()
+    rows.append(k1_row("mobile pair", k1_shapes([mobile]),
+                       {"mobile": mobile["launches"]}, "mobile",
+                       seed=args.seed + 104))
+    log(f"[mobile] phase 12: {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -11,8 +11,10 @@ run when the card is asked for.
   CPU.
 
 Both scans walk the whole package, so every module (``ops/dag.py``,
-``parallel/``, the node, net, CLI, service and sim stacks, and the
-operator tools under ``obs/`` included) is covered without a list to keep.
+``parallel/``, the node, net, CLI, service and sim stacks, the operator
+tools under ``obs/``, the light-client tier under ``client/`` and the
+embedding binding under ``mobile/`` included) is covered without a list
+to keep.
 """
 
 from __future__ import annotations
