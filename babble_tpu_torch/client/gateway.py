@@ -415,13 +415,31 @@ def main(argv=None) -> int:
     _signal.signal(_signal.SIGTERM, _stop)
     while not stop["flag"]:
         _time.sleep(0.2)  # lint: allow(clock: gateway daemon wait loop; operator tool, never under sim)
-    # The final counters, one JSON line on stdout: stats() asks each
-    # shard for its mempool's, which come back through the response loop.
-    gw.stats()
-    _time.sleep(0.5)  # lint: allow(clock: shard stats round trip at shutdown; operator tool, never under sim)
-    print(json.dumps(gw.stats()), flush=True)
+    print(json.dumps(final_stats(gw)), flush=True)
     gw.close()
     return 0
+
+
+def final_stats(gw: Gateway, timeout: float = 10.0) -> dict:
+    """The gateway's ``stats()`` once every shard has answered a fresh
+    stats request, or ``timeout`` seconds have passed. Each shard answers
+    after the tasks queued before the request, through the response loop;
+    a shard still busy (a forward waiting on its validator) answers late.
+    ``workers_missing`` lists the shards that had not answered by the
+    deadline, so that a short line never reads as a complete one."""
+    import time as _time
+
+    # main() asks for no stats before this, so no older answer is in flight
+    gw._worker_stats.clear()
+    gw.stats()
+    deadline = _time.monotonic() + timeout  # lint: allow(clock: shard stats round trip at shutdown; operator tool, never under sim)
+    while (len(gw._worker_stats) < gw.shards
+           and _time.monotonic() < deadline):  # lint: allow(clock: shard stats round trip at shutdown; operator tool, never under sim)
+        _time.sleep(0.05)  # lint: allow(clock: shard stats round trip at shutdown; operator tool, never under sim)
+    out = gw.stats()
+    out["workers_missing"] = [i for i in range(gw.shards)
+                              if i not in out["workers"]]
+    return out
 
 
 if __name__ == "__main__":

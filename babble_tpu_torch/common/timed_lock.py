@@ -37,8 +37,10 @@ class TimedLock:
     )
 
     def __init__(self, observer=None, clock=time.perf_counter,
-                 name=None) -> None:
-        self._lock = threading.Lock()
+                 name=None, reentrant: bool = False) -> None:
+        # A reentrant lock may be taken again by the thread that holds it
+        # (named_rlock); the recorder skips the self-edge that makes.
+        self._lock = threading.RLock() if reentrant else threading.Lock()
         self.wait_s_total: float = 0.0
         self.acquisitions: int = 0
         # Optional per-contended-acquire wait observer (seconds) — the
@@ -103,3 +105,14 @@ def named_lock(name: str):
     if lockcheck.ENABLED:
         return TimedLock(name=name)
     return threading.Lock()
+
+
+def named_rlock(name: str):
+    """The reentrant form of :func:`named_lock`: a reentrant named
+    TimedLock when the recorder is armed, a raw C ``threading.RLock``
+    otherwise. The port's sweep batcher lock is one: a caller that holds
+    it (a test) may queue several windows before the dispatcher takes the
+    wave, and ``submit`` takes it again."""
+    if lockcheck.ENABLED:
+        return TimedLock(name=name, reentrant=True)
+    return threading.RLock()

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from babble_tpu_torch.common.timed_lock import named_rlock
 from babble_tpu_torch.ops import voting
 from babble_tpu_torch.ops.device import DeviceLike, resolve_device
 from babble_tpu_torch.ops.window_state import StaleWindowError
@@ -109,8 +110,9 @@ class SweepBatcher:
 
     def __init__(self) -> None:
         # Reentrant, so that a caller holding it (a test) can queue several
-        # windows before the dispatcher takes the wave.
-        self._lock = threading.RLock()
+        # windows before the dispatcher takes the wave; named for the
+        # BABBLE_LOCKCHECK order recorder (common/lockcheck.py).
+        self._lock = named_rlock("batcher")
         self._pending: List[Ticket] = []
         self._work = threading.Event()
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}

@@ -301,15 +301,16 @@ class Service:
                                    "babble_tpu_torch_profile")
             os.makedirs(out_dir, exist_ok=True)
             path = os.path.join(
-                out_dir, f"trace-{os.getpid()}-{_time.time_ns()}.json"
+                out_dir,
+                f"trace-{os.getpid()}-{_time.time_ns()}.json",  # lint: allow(clock: a unique trace file name, not a consensus time)
             )
             with profile(activities=activities) as prof:
-                t0, first = _time.monotonic(), applied()
+                t0, first = _time.monotonic(), applied()  # lint: allow(clock: wall length of the live device trace's window)
                 _time.sleep(seconds)  # lint: allow(clock: wall capture window for the live device trace)
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
                 last = applied()
-                window = _time.monotonic() - t0
+                window = _time.monotonic() - t0  # lint: allow(clock: wall length of the live device trace's window)
             prof.export_chrome_trace(path)
         finally:
             self._profile_lock.release()

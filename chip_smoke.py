@@ -135,11 +135,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    0, no batcher) to block 3, with identical block JSON at every index
    both hosts received, node 0's chain equal to a host replay of its own
    events through the same app, device sweeps, no fallback, and K1's
-   launches equal to the nodes' device sweeps.
+   launches equal to the nodes' device sweeps;
+13. static analysis and the lock graph on the card: ``python -m
+   babble_tpu_torch.analysis``, its ``--self-proof`` and ``python -m
+   babble_tpu_torch.obs.lint docs/observability.md`` from the checkout
+   (this machine has no JAX), each exiting 0; then, in a fresh process
+   with ``BABBLE_LOCKCHECK=1``, four port Nodes over loopback TCP with the
+   offload on the card and the sweep batcher on, to block 3: identical
+   blocks, node 0's chain equal to a host replay, no fallback, K1's
+   launches equal to the batcher's sweeps, 0 lock-order inversions on
+   every node, ``batcher`` among the locks observed, and every observed
+   order edge in the static lock pass's set or named in
+   LOCK_EDGES_UNSEEN with its reason.
 
 For each live path (the replays of phases 3 and 4, the node cluster of
-phase 8: its batched waves and its per-node sweeps, and phase 12's mobile
-pair), K1 is also held
+phase 8: its batched waves and its per-node sweeps, phase 12's mobile
+pair and phase 13's lock-checked cluster), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
 often; K3 likewise at the batch size phase 10's cluster gave it most
 often. The line before the
@@ -1460,10 +1471,13 @@ def device_profile(seconds: float) -> dict:
 
 def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 warmup_s: float = WARMUP_S, window_s: float = WINDOW_S,
-                profile: bool = False, require_batched: bool = False) -> dict:
+                profile: bool = False, require_batched: bool = False,
+                settle_block: int = SETTLE_BLOCK) -> dict:
     """One arm: an ``n``-node cluster under closed-loop load, ``warmup_s``
     then a ``window_s`` measured window (and with ``profile`` a profiled
-    window after it), then the checks. K1's launches are counted from 0
+    window after it), then, with the load stopped, until every node has
+    committed ``settle_block`` (at most SETTLE_S), then the checks. K1's
+    launches are counted from 0
     for the arm. With the sweep batcher they must equal its sweeps in the
     arm, batched and single (and with ``require_batched`` at least one
     sweep must have batched two windows or more); without it, the device
@@ -1554,10 +1568,14 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 loader.join(timeout=10)
         t_settle = time.monotonic()
         while (min(node.get_last_block_index() for node in nodes)
-               < SETTLE_BLOCK and time.monotonic() - t_settle < SETTLE_S):
+               < settle_block and time.monotonic() - t_settle < SETTLE_S):
             time.sleep(0.25)
         rec["settle_s"] = time.monotonic() - t_settle
         stats = [node.get_stats_snapshot() for node in nodes]
+        # the BABBLE_LOCKCHECK recorder's count as each node reports it
+        # (0 while the recorder is disarmed)
+        rec["lock_order_inversions"] = [s["lock_order_inversions"]
+                                        for s in stats]
         # per block: when its first and its last node committed it, and
         # which node was last, in seconds from the window's start
         by_block = {}
@@ -3919,6 +3937,206 @@ def mobile_fresh() -> dict:
     return rec
 
 
+# -- phase 13: static analysis and the lock graph on the card ----------------
+
+# babblelint's three commands, each run as a subprocess from the checkout
+LINT_COMMANDS = (
+    ("babble_tpu_torch.analysis",),
+    ("babble_tpu_torch.analysis", "--self-proof"),
+    ("babble_tpu_torch.obs.lint", "docs/observability.md"),
+)
+LOCKCHECK_NODES = 4
+LOCKCHECK_BLOCK = 3
+# closed-loop load for this long, then until every node commits
+# LOCKCHECK_BLOCK (phase 10's four nodes reach block 3 in 1.4-4.8 s)
+LOCKCHECK_WARMUP_S = 2.0
+LOCKCHECK_WINDOW_S = 4.0
+# The recorder armed from the environment, as the reference's chaos soak
+# arms it, and the offload on the card with the sweep batcher on. Every
+# window goes to the card: at four validators none reaches the default
+# min_window (192 events) before block 3, and a cluster that never sweeps
+# never takes the batcher's lock.
+LOCKCHECK_ENV = {"BABBLE_LOCKCHECK": "1", "BABBLE_ACCEL_BATCH": "1",
+                 "BABBLE_ACCEL_MIN_WINDOW": "0"}
+# Order edges that threads on the card take and the static lock pass cannot
+# see, each with why. The JAX package's pass misses each on the JAX
+# package's tree too (tests/test_torch_analysis.py); every other observed
+# edge must be in the static set.
+LOCK_EDGES_UNSEEN = {
+    "core->batcher": (
+        "a flush under the core lock reaches SweepBatcher.submit through "
+        "hg.accel (Core -> Hashgraph -> TensorConsensus -> SweepBatcher); "
+        "the pass resolves a call one hop, through its ATTR_TYPES "
+        "convention table, which names no hg or accel attribute "
+        "(analysis/lock_pass.py)"),
+}
+
+
+def lint_runs() -> dict:
+    """babblelint over the checkout, its self-proof and the metrics lint,
+    each in a fresh interpreter (this machine has no JAX): every one must
+    exit 0. Returns the files linted, the passes that fired in the
+    self-proof and the instruments matched."""
+    import os
+    import re
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for args in LINT_COMMANDS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=here,
+                              capture_output=True, text=True, timeout=120)
+        took = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[lint] python -m {' '.join(args)}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                                 f"\n{proc.stderr[-2000:]}")
+        text = proc.stdout
+        if args[-1] == "--self-proof":
+            out["self_proof_fired"] = len(re.findall(r": fired ", text))
+        elif args[0].endswith(".lint"):
+            out["instruments"] = int(re.search(
+                r"metrics lint ok: (\d+) instruments", text).group(1))
+        else:
+            out["files"] = int(re.search(
+                r"babblelint ok: (\d+) files clean", text).group(1))
+        log(f"[lint] python -m {' '.join(args)}: exit 0 in {took:.2f} s: "
+            f"{text.strip().splitlines()[-1]}")
+    log(f"[lint] violations 0 over {out['files']} files; self-proof "
+        f"{out['self_proof_fired']} of 5 fired; {out['instruments']} "
+        "instruments match docs/observability.md")
+    return out
+
+
+def lockcheck_child() -> None:
+    """Phase 13's cluster, in a process of its own whose environment arms
+    the recorder: LOCKCHECK_NODES port Nodes over loopback TCP (phase 8's
+    ``tcp_cluster`` settings) with the offload on the card and the sweep
+    batcher on, under closed-loop load until every node has committed
+    LOCKCHECK_BLOCK. ``cluster_arm`` checks identical blocks, node 0 = a
+    host replay, no fallback and K1's launches = the batcher's sweeps; here
+    the batcher's lock must be the named ``batcher``, every node must
+    report 0 inversions, ``batcher`` must be among the locks observed, and
+    every observed edge must be in the static lock pass's set or in
+    LOCK_EDGES_UNSEEN (and no edge there in the static set). Prints one
+    ``LOCKCHECK`` line of JSON for the parent."""
+    import torch
+
+    from babble_tpu_torch.analysis.core import load_tree
+    from babble_tpu_torch.analysis.lock_pass import static_edges
+    from babble_tpu_torch.common import lockcheck
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.ops import kernels
+
+    if not lockcheck.ENABLED:
+        raise AssertionError("[lockcheck] BABBLE_LOCKCHECK is not armed")
+    kernels.build()
+    torch.cuda.init()
+    lock = SweepBatcher.instance()._lock
+    if getattr(lock, "name", None) != "batcher":
+        raise AssertionError(f"[lockcheck] the batcher's lock {lock!r} does "
+                             "not report to the recorder as 'batcher'")
+    t0 = time.perf_counter()
+    static = static_edges(load_tree())
+    static_s = time.perf_counter() - t0
+    rec = cluster_arm("lockcheck", True, {}, n=LOCKCHECK_NODES,
+                      warmup_s=LOCKCHECK_WARMUP_S,
+                      window_s=LOCKCHECK_WINDOW_S,
+                      require_batched=False, settle_block=LOCKCHECK_BLOCK)
+    if rec["common_block"] < LOCKCHECK_BLOCK:
+        raise AssertionError(f"[lockcheck] common block "
+                             f"{rec['common_block']} < {LOCKCHECK_BLOCK}")
+    if rec["sweeps"] <= 0 or not rec["batcher"]:
+        raise AssertionError(f"[lockcheck] sweeps {rec['sweeps']}, batcher "
+                             f"{rec['batcher']}: the batcher never swept")
+    observed = lockcheck.RECORDER.edge_list()
+    inversions = lockcheck.RECORDER.inversions()
+    locks = sorted({x for e in observed for x in e.split("->")})
+    unseen = sorted(set(observed) - set(static))
+    if inversions or any(rec["lock_order_inversions"]):
+        raise AssertionError(f"[lockcheck] inversions {inversions}; per "
+                             f"node {rec['lock_order_inversions']}")
+    if "batcher" not in locks:
+        raise AssertionError(f"[lockcheck] 'batcher' not among the observed "
+                             f"locks {locks} (edges {observed})")
+    if set(unseen) - set(LOCK_EDGES_UNSEEN):
+        raise AssertionError(f"[lockcheck] observed edges "
+                             f"{sorted(set(unseen) - set(LOCK_EDGES_UNSEEN))}"
+                             f" are neither in the static set {static} nor "
+                             "named in LOCK_EDGES_UNSEEN")
+    if set(LOCK_EDGES_UNSEEN) & set(static):
+        raise AssertionError(f"[lockcheck] LOCK_EDGES_UNSEEN names edges the "
+                             f"static pass sees: "
+                             f"{sorted(set(LOCK_EDGES_UNSEEN) & set(static))}")
+    out = {k: rec[k] for k in (
+        "common_block", "launches", "expected_launches", "sweeps",
+        "stale_drops", "in_flight", "fallbacks", "replayed_events",
+        "lock_order_inversions", "tx_per_s", "settle_s", "shutdown_s")}
+    out.update(
+        observed=observed, static=static, unseen=unseen, locks=locks,
+        static_s=static_s, wave=rec["wave"],
+        sweep_shapes=[[list(k), v] for k, v in rec["sweep_shapes"].items()])
+    log(f"[lockcheck] {LOCKCHECK_NODES} nodes (BABBLE_LOCKCHECK=1, the card, "
+        f"the batcher) to block {rec['common_block']}: identical blocks, "
+        f"node 0 = host replay of {rec['replayed_events']} events, fallbacks "
+        f"0; K1 launches {rec['launches']} = the batcher's sweeps "
+        f"{rec['expected_launches']} ({rec['wave']['batch_batches']} batched,"
+        f" {rec['wave']['batch_singles']} single); inversions per node "
+        f"{rec['lock_order_inversions']}; locks observed {locks}")
+    log(f"[lockcheck] observed edges {observed}; static edges {static} "
+        f"({static_s:.2f} s); observed outside the static set {unseen}, "
+        f"each named: " + "; ".join(
+            f"{e}: {LOCK_EDGES_UNSEEN[e]}" for e in unseen))
+    print("LOCKCHECK " + json.dumps(out), flush=True)
+
+
+def lockcheck_fresh() -> dict:
+    """``lockcheck_child`` in a fresh interpreter with LOCKCHECK_ENV (the
+    recorder is armed at import, and named locks are chosen when they are
+    built). Returns its record, the batcher's sweep shapes as a Counter of
+    (B, W, P, S)."""
+    import os
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.lockcheck_child()"],
+        cwd=here, env={**os.environ, **LOCKCHECK_ENV}, capture_output=True,
+        text=True, timeout=300,
+    )
+    lines = proc.stdout.splitlines()
+    sys.stdout.write("".join(ln + "\n" for ln in lines
+                             if not ln.startswith("LOCKCHECK ")))
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"lockcheck process exit {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    rec = json.loads([ln for ln in lines
+                      if ln.startswith("LOCKCHECK ")][0][10:])
+    rec["sweep_shapes"] = Counter({tuple(k): v
+                                   for k, v in rec["sweep_shapes"]})
+    return rec
+
+
+def static_analysis_phase(name_power: str, seed: int) -> dict:
+    """Phase 13: the lint runs, then the lock-checked cluster; returns the
+    kernels-line row of K1 at the shape the cluster's batcher swept most
+    often (a single sweep's (1, W, P, S) as (W, P, S))."""
+    t0 = time.perf_counter()
+    lint = lint_runs()
+    rec = lockcheck_fresh()
+    shapes = Counter()
+    for (B, W, P, S), n in rec["sweep_shapes"].items():
+        shapes[(W, P, S) if B == 1 else (B, W, P, S)] += n
+    row = k1_row("lock-checked cluster", shapes,
+                 {"lockcheck": rec["launches"]}, "lockcheck", seed=seed)
+    log(f"[lockcheck] phase 13: {time.perf_counter() - t0:.1f} s; lint "
+        f"{lint}; {name_power or 'nvidia-smi: not available'}")
+    return row
+
+
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
 _AB_CHILD = """
@@ -4254,6 +4472,10 @@ def main(argv=None) -> int:
                        {"mobile": mobile["launches"]}, "mobile",
                        seed=args.seed + 104))
     log(f"[mobile] phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # Phase 13: babblelint, then a lock-checked cluster on the card in a
+    # fresh process; K1 counted from 0 there before its nodes are built
+    rows.append(static_analysis_phase(dev["name_power"], args.seed + 105))
 
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

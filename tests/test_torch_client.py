@@ -31,6 +31,7 @@ import struct
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 import types
 import urllib.error
@@ -346,6 +347,19 @@ def _wait(pred, deadline_s=60.0, msg="condition"):
             return
         time.sleep(0.03)
     raise AssertionError(f"timeout waiting for {msg}")
+
+
+def _quiet(sample, still_s, deadline_s, msg):
+    """Wait until ``sample()`` has not changed for ``still_s`` seconds."""
+    deadline = time.monotonic() + deadline_s
+    last, since = sample(), time.monotonic()
+    while time.monotonic() - since < still_s:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timeout waiting for {msg}")
+        time.sleep(0.1)
+        now = sample()
+        if now != last:
+            last, since = now, time.monotonic()
 
 
 def _live_checkpoint(pkg):
@@ -704,7 +718,7 @@ def test_clientsmoke_port_cluster_gateway_swarm_proofs():
         assert swarm.connect_errors == 0
         _wait(lambda: sum(n.client_hub.stats()["subscribers"]
                           for n in nodes) == n_subs + 1,
-              20, "all subscribers attached")
+              60, "all subscribers attached")
 
         gw_client = JsonRpcClient(gw.listen_addr)
         accepted = []
@@ -729,7 +743,7 @@ def test_clientsmoke_port_cluster_gateway_swarm_proofs():
         for j, tx in enumerate(sample):
             tid = txid_hex(tx)
             srv = services[j % n_nodes]
-            deadline = time.monotonic() + 30.0
+            deadline = time.monotonic() + 60.0
             while True:
                 try:
                     with urllib.request.urlopen(
@@ -764,7 +778,10 @@ def test_clientsmoke_port_cluster_gateway_swarm_proofs():
         _wait(lambda: sum(n.client_hub.stats()["shed"]
                           for n in nodes) >= n_stalled,
               60, "stalled subscribers shed")
-        time.sleep(1.0)  # let the stream's tail reach the swarm
+        _quiet(lambda: ([mb.blocks for mb in swarm.members],
+                        [n.client_hub.stats()["pushed_blocks"]
+                         for n in nodes]),
+               2.0, 60, "the stream's tail reached the swarm")
         st = swarm.stats()
         assert st["gaps"] == 0, st
         healthy = swarm.healthy()
@@ -784,7 +801,7 @@ def test_clientsmoke_port_cluster_gateway_swarm_proofs():
         ref_client = RefClient(nodes[1].client_hub.bind_addr, start=0)
         try:
             for i in range(2):
-                frame = ref_client.recv(timeout=10)
+                frame = ref_client.recv(timeout=60)
                 block = RefBlock.from_dict(frame["block"])
                 assert block.index() == i
                 assert ref_verify_block(block, peer_dicts) >= 2
@@ -889,6 +906,66 @@ def test_gateway_shard_process_imports_only_the_port(tmp_path):
     assert out.stdout.split() == ["accepted", "1", "0", "[]"], out.stdout
 
 
+def test_gateway_final_stats_waits_for_a_late_shard():
+    """A shard still forwarding to its validator answers the final stats
+    request late. ``final_stats`` names it in ``workers_missing`` while it
+    is held past the deadline, and reports its counters once it answers.
+    The fixed 0.5 s wait that ``main`` used before printed such a line
+    without that shard and without saying so."""
+    from babble_tpu_torch.client import gateway as gwmod
+    from babble_tpu_torch.proxy.socket_proxy import JsonRpcServer
+
+    release = threading.Event()
+
+    def slow_submit(tx_b64):
+        release.wait(60)
+        return True
+
+    validator = JsonRpcServer("127.0.0.1:0", {"Babble.SubmitTx": slow_submit})
+    dead = socket.socket()  # bound, never listening: refuses connections
+    dead.bind(("127.0.0.1", 0))
+    m = _mods(PORT)
+    peers = [p.to_dict() for p in _peer_set(m, _keys(m)).peers]
+    gw = gwmod.Gateway([validator.addr],
+                       f"127.0.0.1:{dead.getsockname()[1]}", peers,
+                       shards=2, submit_timeout=60.0)
+    gw.start()
+    verdicts = []
+    submitter = None
+    try:
+        tx = next(t for t in (b"late tx %d" % i for i in range(64))
+                  if gwmod._shard_of(t, 2) == 1)
+        submitter = threading.Thread(
+            target=lambda: verdicts.append(gw.submit(tx)))
+        submitter.start()
+        _wait(lambda: gw._task_qs[1].empty() and gw.submitted == 1, 30,
+              "shard 1 took the transaction")
+        held = gwmod.final_stats(gw, timeout=0.5)
+        assert 1 in held["workers_missing"]
+        assert sorted([*held["workers"], *held["workers_missing"]]) == [0, 1]
+        # the validator answers 2 s into the final wait
+        timer = threading.Timer(2.0, release.set)
+        timer.start()
+        t0 = time.monotonic()
+        final = gwmod.final_stats(gw, timeout=60.0)
+        assert time.monotonic() - t0 >= 2.0
+        timer.join(timeout=10)
+        assert final["workers_missing"] == []
+        assert sorted(final["workers"]) == [0, 1]
+        assert final["workers"][0]["submitted"] == 0
+        assert final["workers"][1]["submitted"] == 1
+        assert final["workers"][1]["accepted"] == 1
+        submitter.join(timeout=60)
+        assert not submitter.is_alive() and verdicts == ["accepted"]
+    finally:
+        release.set()
+        gw.close()
+        validator.close()
+        dead.close()
+        if submitter is not None:
+            submitter.join(timeout=60)
+
+
 def test_gateway_cli_processes_serve_and_shut_down(tmp_path):
     """``python -m babble_tpu_torch.client.gateway --processes`` starts its
     shard processes, answers SubmitTx (no validator is up, so a fresh
@@ -897,13 +974,12 @@ def test_gateway_cli_processes_serve_and_shut_down(tmp_path):
     shard's counters included) as one JSON line and exits 0."""
     from babble_tpu_torch.proxy.socket_proxy import JsonRpcClient
 
-    socks = [socket.socket() for _ in range(4)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    dead, listen, sub, http = (f"127.0.0.1:{s.getsockname()[1]}"
-                               for s in socks)
-    for s in socks:
-        s.close()
+    # The gateway binds its own ports (":0") and names them on its "gateway
+    # up" line; the dead validator is a socket held bound and never
+    # listening, so no other process can take its port while the test runs.
+    dead_sock = socket.socket()
+    dead_sock.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{dead_sock.getsockname()[1]}"
     m = _mods(PORT)
     peers = tmp_path / "peers.json"
     peers.write_text(json.dumps([p.to_dict() for p in
@@ -911,21 +987,26 @@ def test_gateway_cli_processes_serve_and_shut_down(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "babble_tpu_torch.client.gateway",
          "--forward", dead, "--upstream", dead, "--peers", str(peers),
-         "--listen", listen, "--sub-listen", sub, "--http", http,
-         "--shards", "2", "--processes"],
+         "--listen", "127.0.0.1:0", "--sub-listen", "127.0.0.1:0",
+         "--http", "127.0.0.1:0", "--shards", "2", "--processes"],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    err_lines = []
+    reader = threading.Thread(target=lambda: err_lines.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
     try:
         deadline = time.monotonic() + 120
-        while True:
-            try:
-                with urllib.request.urlopen(f"http://{http}/stats",
-                                            timeout=2) as r:
-                    stats = json.loads(r.read())
-                break
-            except OSError:
-                assert proc.poll() is None, proc.communicate()[1]
-                assert time.monotonic() < deadline, "gateway never came up"
-                time.sleep(0.2)
+        while not any(ln.startswith("gateway up") for ln in err_lines):
+            assert proc.poll() is None, "".join(err_lines)
+            assert time.monotonic() < deadline, "gateway never came up"
+            time.sleep(0.1)
+        up = next(ln for ln in err_lines if ln.startswith("gateway up"))
+        fields = dict(part.strip().split(" ", 1)
+                      for part in up.split(":", 1)[1].split(","))
+        listen, http = fields["submit"], fields["http"]
+        assert fields["subscribe"].startswith("127.0.0.1:")
+        with urllib.request.urlopen(f"http://{http}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
         assert stats["upstream"] == dead and stats["validators"] == 4
         client = JsonRpcClient(listen, timeout=60.0)
         tx = base64.b64encode(b"cli tx").decode()
@@ -933,9 +1014,10 @@ def test_gateway_cli_processes_serve_and_shut_down(tmp_path):
         assert client.call("Babble.SubmitTx", tx) == "duplicate"
         client.close()
         proc.send_signal(signal.SIGTERM)
-        out, err = proc.communicate(timeout=60)
-        assert proc.returncode == 0, err
-        assert "gateway up" in err
+        proc.wait(timeout=60)
+        out = proc.stdout.read()
+        reader.join(timeout=10)
+        assert proc.returncode == 0, "".join(err_lines)
         final = json.loads(out.strip().splitlines()[-1])
         assert final["shards"] == 2 and final["processes"] is True
         assert final["submitted"] == 2 and final["forward_unavailable"] == 1
@@ -946,7 +1028,11 @@ def test_gateway_cli_processes_serve_and_shut_down(tmp_path):
                          key=lambda w: w["submitted"])
         assert [w["submitted"] for w in workers] == [0, 2]
         assert workers[1]["accepted"] == 1 and workers[1]["rejected_dup"] == 1
+        assert final["workers_missing"] == []
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait(timeout=60)
+        proc.stdout.close()
+        reader.join(timeout=10)
+        dead_sock.close()

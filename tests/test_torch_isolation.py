@@ -12,9 +12,10 @@ run when the card is asked for.
 
 Both scans walk the whole package, so every module (``ops/dag.py``,
 ``parallel/``, the node, net, CLI, service and sim stacks, the operator
-tools under ``obs/``, the light-client tier under ``client/`` and the
-embedding binding under ``mobile/`` included) is covered without a list
-to keep.
+tools under ``obs/``, the light-client tier under ``client/``, the
+embedding binding under ``mobile/`` and the lint suite under
+``analysis/`` with its ``obs/lint.py`` shim included) is covered without
+a list to keep.
 """
 
 from __future__ import annotations
@@ -86,7 +87,11 @@ def test_no_forbidden_imports_in_sources():
             "babble_tpu_torch.service.service"} <= mods
     # the operator tools, which the fresh-interpreter test imports too
     assert {f"babble_tpu_torch.obs.{m}" for m in
-            ("ledger", "perfgate", "traceview", "healthview")} <= mods
+            ("ledger", "perfgate", "traceview", "healthview", "lint")} <= mods
+    # the lint suite, every pass and its entry point
+    assert {f"babble_tpu_torch.analysis{m}" for m in
+            ("", ".__main__", ".core", ".clock_pass", ".lock_pass",
+             ".knob_pass", ".metrics_pass")} <= mods
 
 
 def test_importing_every_port_module_loads_no_jax():
