@@ -22,10 +22,12 @@ from babble_tpu_torch.crypto.keys import (
     generate_key,
     public_key_id,
 )
+from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
 
 __all__ = [
     "PrivateKey",
     "PublicKey",
+    "SimpleKeyfile",
     "decode_signature",
     "encode_signature",
     "generate_key",

@@ -257,8 +257,10 @@ class TensorConsensus:
     read ``stats()`` and the counters the node telemetry scrapes
     (``sweeps``, ``fallbacks``, ``stale_drops`` and the rest below).
     ``device`` defaults to ``cuda`` and raises without a card. ``clock``
-    (a common.clock.Clock) times the breaker and the stages; ``owner``
-    names the validator in the offload's log lines."""
+    (a common.clock.Clock) times the breaker and the stages; ``breaker``
+    (a common.breaker.CircuitBreaker) replaces the one built from
+    ``BABBLE_ACCEL_BREAKER_*``; ``owner`` names the validator in the
+    offload's log lines."""
 
     def __init__(self, device: DeviceLike = None, sweep_events: int = 256,
                  min_window: int | None = None,
@@ -266,6 +268,7 @@ class TensorConsensus:
                  mesh=None,
                  batcher: bool | None = None,
                  resident: bool | None = None,
+                 breaker: CircuitBreaker | None = None,
                  clock=None,
                  owner: str | None = None):
         self.device = resolve_device(device)
@@ -322,8 +325,10 @@ class TensorConsensus:
             window_state.script_programs()
         # A store eviction falls back to the oracle for its flush; repeated
         # ones open the breaker for a cooldown, then a probe sweep
-        # re-enables the path.
-        self.breaker = _breaker_from_env(clock)
+        # re-enables the path. ``breaker`` replaces the one built from the
+        # environment, as in the JAX package.
+        self.breaker = (breaker if breaker is not None
+                        else _breaker_from_env(clock))
         # A pipelined sweep still not done this long after the host enqueued
         # it means a wedged card: flush raises TimeoutError.
         self.readback_timeout_s = 30.0
@@ -443,6 +448,15 @@ class TensorConsensus:
     def busy(self) -> bool:
         """True while decisions are pending on an in-flight sweep."""
         return self._inflight is not None
+
+    def wait_landed(self) -> None:
+        """Wait until the in-flight sweep, if any, has landed on the host,
+        at most until ``readback_timeout_s`` past its enqueue (the next
+        flush then raises TimeoutError)."""
+        inf = self._inflight
+        while (inf is not None and not inf.landed()
+               and self._perf() - inf.t_enqueued <= self.readback_timeout_s):
+            time.sleep(0.0002)
 
     def invalidate(self) -> None:
         """Drop any in-flight sweep (hashgraph reset / fast-sync landing):

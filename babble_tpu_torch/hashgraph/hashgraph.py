@@ -55,6 +55,11 @@ from babble_tpu_torch.peers.peer_set import PeerSet
 
 logger = logging.getLogger("babble_tpu_torch.hashgraph")
 
+#: Rounds after the round received of the block that commits a membership
+#: change before the change takes effect (the node core's
+#: PEER_SET_EFFECTIVE_DELAY, reference core.go:566-569).
+PEER_SET_EFFECTIVE_DELAY = 6
+
 # How many FrameEvents are included in a Root. Must be identical across
 # peers or they produce different Frames/Blocks (reference: hashgraph.go:15-22).
 ROOT_DEPTH = 10
@@ -160,6 +165,11 @@ class Hashgraph:
         # insert; inserts between sweeps are counted in _accel_pending.
         self.accel = None
         self._accel_pending = 0
+        # Events carrying internal transactions (membership changes) that
+        # may still be undecided, while an offload defers the voting: see
+        # _membership_change_due.
+        self._accel_itx_events: set = set()
+        self.forced_decisions = 0  # decide_deferred runs
         # Pipeline-stage observer (obs.telemetry): fn(stage, seconds)
         # feeding the sync_stage_seconds histogram + the active sync
         # trace. None (bare hashgraphs, BABBLE_OBS=0) keeps the staged
@@ -606,8 +616,46 @@ class Hashgraph:
             self._accel_pending += 1
             if self.accel.should_sweep(self._accel_pending):
                 self.run_consensus_sweep()
+            if self._membership_change_due():
+                self.decide_deferred()
             return
         self.run_consensus_sweep()
+
+    def _membership_change_due(self) -> bool:
+        """True when the voting an offload defers must run to completion
+        before the next insert: an undecided event carries an internal
+        transaction (a membership change) and the DAG has reached
+        PEER_SET_EFFECTIVE_DELAY rounds past that event's round. The change
+        takes effect PEER_SET_EFFECTIVE_DELAY rounds after the round
+        received of the block that commits it, which is later than the
+        event's round, and is registered when that block commits. The
+        reference decides at every insert, so the change is registered
+        before any event of that round is inserted; deferred past it, a
+        node that replays history in large syncs (a joiner) would divide
+        later rounds under a peer-set not yet registered, and fork."""
+        first = None
+        for h in list(self._accel_itx_events):
+            try:
+                ev = self.store.get_event(h)
+            except StoreError:
+                ev = None  # evicted: long decided
+            if ev is None or ev.round_received is not None:
+                self._accel_itx_events.discard(h)
+            elif ev.round is not None and (first is None or ev.round < first):
+                first = ev.round
+        return (first is not None and
+                self.store.last_round() >= first + PEER_SET_EFFECTIVE_DELAY)
+
+    def decide_deferred(self) -> None:
+        """Run the voting an offload has deferred over every event inserted
+        so far, and apply it: a sweep now and, while a pipelined sweep is in
+        flight, waits for it to land and flushes again."""
+        self.forced_decisions += 1
+        self._accel_pending = max(self._accel_pending, 1)
+        self.run_consensus_sweep()
+        while self.accel.busy():
+            self.accel.wait_landed()
+            self.run_consensus_sweep()
 
     def flush_consensus(self) -> None:
         """Run any deferred accelerated consensus sweep (no-op without an
@@ -673,6 +721,8 @@ class Hashgraph:
 
         self.undetermined_events.append(event.hex())
         self._round_pending.append(event.hex())
+        if self.accel is not None and event.internal_transactions():
+            self._accel_itx_events.add(event.hex())
 
         if event.is_loaded():
             self.pending_loaded_events += 1
@@ -1319,6 +1369,7 @@ class Hashgraph:
         self._accel_pending = 0
         self._accel_new_witnesses = []
         self._accel_fd_dirty = set()
+        self._accel_itx_events = set()
         self._round_ctx = {}
         if self.accel is not None:
             # An in-flight sweep's snapshot no longer describes this store.

@@ -129,6 +129,13 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.bt_sign.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p]
         lib.bt_pubkey.restype = ctypes.c_int
         lib.bt_pubkey.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.bt_sha256_batch.restype = None
+        lib.bt_sha256_batch.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int,
+            ctypes.c_int,
+            ctypes.c_char_p,
+        ]
         _lib = lib
         return _lib
 
@@ -213,3 +220,20 @@ def pubkey(priv32: bytes) -> Optional[Tuple[int, int]]:
     raw = out.raw
     return int.from_bytes(raw[:32], "big"), int.from_bytes(raw[32:], "big")
 
+
+def sha256_batch(msgs: Sequence[bytes]) -> Optional[List[bytes]]:
+    """SHA-256 of n equal-length messages in one native call: None when the
+    library is absent, [] for no messages; ValueError when the lengths
+    differ."""
+    lib = _load()
+    if lib is None:
+        return None
+    if not msgs:
+        return []
+    stride = len(msgs[0])
+    if any(len(m) != stride for m in msgs):
+        raise ValueError("sha256_batch requires equal-length messages")
+    out = ctypes.create_string_buffer(32 * len(msgs))
+    lib.bt_sha256_batch(b"".join(msgs), stride, len(msgs), out)
+    raw = out.raw
+    return [raw[32 * i:32 * i + 32] for i in range(len(msgs))]

@@ -403,33 +403,46 @@ class Core:
         fork_errs: List[ForkError] = []
 
         pos = len(prepared.decoded)
-        for we, ev in zip(unknown_events[:pos], prepared.decoded):
-            other_head = self._ingest_one(
-                we, ev, from_id, other_head, fork_errs, hop
-            )
-
-        while pos < n:
-            # Tail after a decode stall: re-run decode+batch-verify in
-            # chunks under the lock, resuming after the stalled inserts
-            # land — identical semantics to the reference's sequential
-            # decode+insert, just batched where the DAG allows.
-            decoded: List[Event] = []
-            j = pos
-            if self.accelerated_verify or self._host_batch_verify:
-                decoded, j = self._decode_chunk(unknown_events, pos)
-                if decoded:
-                    self._batch_prevalidate(decoded)
-            if j == pos:
-                # Sequential path (accelerator off, or chunk stalled at the
-                # first event — let read_wire_info raise its real error).
-                decoded = [self.hg.read_wire_info(unknown_events[pos])]
-                j = pos + 1
-
-            for we, ev in zip(unknown_events[pos:j], decoded):
+        try:
+            for we, ev in zip(unknown_events[:pos], prepared.decoded):
                 other_head = self._ingest_one(
                     we, ev, from_id, other_head, fork_errs, hop
                 )
-            pos = j
+
+            while pos < n:
+                # Tail after a decode stall: re-run decode+batch-verify in
+                # chunks under the lock, resuming after the stalled inserts
+                # land — identical semantics to the reference's sequential
+                # decode+insert, just batched where the DAG allows.
+                decoded: List[Event] = []
+                j = pos
+                if self.accelerated_verify or self._host_batch_verify:
+                    decoded, j = self._decode_chunk(unknown_events, pos)
+                    if decoded:
+                        self._batch_prevalidate(decoded)
+                if j == pos:
+                    # Sequential path (accelerator off, or chunk stalled at
+                    # the first event — let read_wire_info raise its real
+                    # error).
+                    decoded = [self.hg.read_wire_info(unknown_events[pos])]
+                    j = pos + 1
+
+                for we, ev in zip(unknown_events[pos:j], decoded):
+                    other_head = self._ingest_one(
+                        we, ev, from_id, other_head, fork_errs, hop
+                    )
+                pos = j
+        except Exception:
+            # An event this store cannot take yet ends the batch: say its
+            # creator joined in a block not committed here. With the
+            # offload, the decisions on the events inserted so far wait for
+            # a flush; without one, a node that replays history (a joiner)
+            # never commits the block that registers that creator, and the
+            # peer sends the same event first at every sync. Flush before
+            # the error propagates (a no-op without the offload, whose
+            # oracle decides at every insert).
+            self.hg.flush_consensus()
+            raise
 
         # Do not overwrite a non-empty head with an empty one
         # (reference: core.go:246-252).
@@ -613,8 +626,18 @@ class Core:
 
         self.hg.reset(block, frame)
         self.set_head_and_seq()
-        self.set_peers(peer_set)
-        self.validators = peer_set
+        # The validator-set the block's committers held is the last peer-set
+        # registered before it: a change committed in an earlier block is
+        # registered PEER_SET_EFFECTIVE_DELAY rounds ahead, so it may not be
+        # in effect at the frame's round yet. Starting from the frame's
+        # round's set instead, this node would apply the anchor block's own
+        # membership receipts (Node._fast_forward) to a stale set, register a
+        # different peer-set than its peers and fork (the reference and the
+        # JAX package start from frame.peers).
+        latest = (PeerSet(frame.peer_sets[max(frame.peer_sets)])
+                  if frame.peer_sets else peer_set)
+        self.set_peers(latest)
+        self.validators = latest
 
     def get_anchor_block_with_frame(self) -> tuple[Block, Frame]:
         return self.hg.get_anchor_block_with_frame()

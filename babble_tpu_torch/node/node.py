@@ -144,6 +144,10 @@ class Node(StateManager):
         # the pull response) — a hostile peer must not dictate how much
         # we ingest per request.
         self.sync_limit_truncations = 0
+        # Fast-forwards that landed (the store re-based on a peer's anchor
+        # block). The port counts them for its fast-sync checks; the JAX
+        # package's node has no such counter.
+        self.fast_forwards = 0
         # Sender-side twin: OUR diff exceeded sync_limit and was cut
         # before the push. A peer that chronically trails by more than
         # one sync_limit shows up here — silent truncation was how the
@@ -688,6 +692,7 @@ class Node(StateManager):
         stats["lifecycle_store_bytes"] = sz.get("store_bytes", 0)
         stats.update(self.core.peer_selector.stats())
         stats["sync_limit_truncations"] = self.sync_limit_truncations
+        stats["fast_forwards"] = self.fast_forwards
         stats["sync_diff_truncations"] = self.sync_diff_truncations
         # Adaptive gossip scheduler surface (docs/gossip.md §Adaptive
         # scheduling): the controller's published plan + change count,
@@ -1155,6 +1160,7 @@ class Node(StateManager):
             self.logger.error("fast-forward failed: %s", err)
             return
 
+        self.fast_forwards += 1
         self._transition(State.BABBLING)
 
     def _get_best_fast_forward_response(self) -> Optional[FastForwardResponse]:

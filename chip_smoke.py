@@ -146,11 +146,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches equal to the batcher's sweeps, 0 lock-order inversions on
    every node, ``batcher`` among the locks observed, and every observed
    order edge in the static lock pass's set or named in
-   LOCK_EDGES_UNSEEN with its reason.
+   LOCK_EDGES_UNSEEN with its reason;
+14. membership churn (BASELINE.json config 4), in a fresh process: (a) a
+   seeded stream of 64 validators in which two join and two leave at
+   consecutive rounds (peer-sets registered by round, so that windows
+   carry up to five slots) and the three golden dynamic-membership
+   fixtures (r2dyn, usurper, monologue) through TensorConsensus on the
+   card in four arms — resident sync, pipelined, the sweep batcher, a
+   mesh of four virtual shards — each equal to a host oracle (the
+   stream's in a child process), with K1's launches equal to the device
+   sweeps; (b) 16 port Nodes over loopback TCP at phase 8's settings, in a
+   process of their own started before phase 11 and running beside phases
+   11-13 and (a), with the offload at its card defaults and every window on
+   the card, under
+   closed-loop load, through a join, a polite leave, a join, a leave and a
+   join by fast-sync, one requested every 5 s once the last committed:
+   identical blocks on every live node (the fast-synced node's from its
+   anchor), one peer-set, node 0 equal to a host replay, no fallback, K1's
+   launches equal to the batcher's sweeps, a sweep with two peer-set slots
+   or more, and the fast-synced node's sweeps grown after its reset; each
+   change's seconds from request to commit; (c) ``invalidate()`` while a
+   pipelined sweep is still running on the card (its CUDA event not done;
+   windows enlarged until one is, else its copy-out queued behind a sleep
+   kernel on the offload's stream): dropped, its slot free, consensus
+   equal to the oracle; (d) injected launch failures open the breaker, an
+   open breaker launches no K1, and a probe after the cooldown closes it;
+   last, once (b) has ended, K1 against its plain version, with time,
+   bound and share, at every shape of (a) and (b) with two slots or more.
 
 For each live path (the replays of phases 3 and 4, the node cluster of
 phase 8: its batched waves and its per-node sweeps, phase 12's mobile
-pair and phase 13's lock-checked cluster), K1 is also held
+pair, phase 13's lock-checked cluster, and phase 14's replayed stream and
+live cluster at each slot count of two or more), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
 often; K3 likewise at the batch size phase 10's cluster gave it most
 often. The line before the
@@ -171,6 +198,11 @@ holds every tile of K2's block form against the plain version and times
 it at K2_BLOCK_SHAPES and at the square K2 rows, prints which tile is
 fastest and which the C entry picks, and the SASS instruction counts of
 each K2 kernel, and exits.
+
+    python3 chip_smoke.py --phase 14
+
+runs phase 1 (the device and the build), then phase 14 alone, and ends
+with the kernels line (phase 14's rows) and the device line.
 """
 
 from __future__ import annotations
@@ -203,6 +235,9 @@ CHANGE_ROUND = 3
 MIN_BLOCKS_AFTER_CHANGE = 16
 # how long a replay may wait for its last pipelined sweep to land
 DRAIN_S = 60.0
+# events a validator creates in a round of a random gossip stream, about
+# (gossip_stream's membership changes are placed by it)
+ROUND_EVENTS_PER_PEER = 9
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the 32-bit rate of
 # the CUDA cores outside the tensor cores; K1's compare-adds run there.
@@ -472,11 +507,21 @@ def check_k2(shape, seed: int) -> dict:
 # -- the signed event stream -------------------------------------------------
 
 
-def gossip_stream(n_peers: int, n_events: int, seed: int):
+def gossip_stream(n_peers: int, n_events: int, seed: int, changes=()):
     """A seeded random-gossip stream of signed events: each event's self-
     parent is its creator's head, its other-parent a random peer's head,
     and it carries TX_PER_EVENT random transactions of TX_BYTES bytes.
-    Returns (events, keys, peer_set)."""
+    Returns (events, keys, peer_set): the peer-set of the ``n_peers``
+    genesis validators.
+
+    ``changes`` holds (kind, round) membership changes, kind "join" or
+    "leave" (``churn_peer_sets`` registers their peer-sets). A joiner is a
+    key beyond the genesis ones (keys[n_peers + k] for the k-th join),
+    which creates events from the stream's position of its round on; a
+    leaver (the last genesis validator not yet gone) creates none from
+    that position on. A round is about ROUND_EVENTS_PER_PEER events a
+    validator into the stream (a 64-validator stream's rounds hold
+    596-639 events)."""
     from babble_tpu_torch.crypto.keys import PrivateKey
     from babble_tpu_torch.crypto.secp256k1 import N as CURVE_N
     from babble_tpu_torch.hashgraph.event import Event
@@ -484,23 +529,37 @@ def gossip_stream(n_peers: int, n_events: int, seed: int):
     from babble_tpu_torch.peers.peer_set import PeerSet
 
     rng = random.Random(seed)
-    keys = [PrivateKey(rng.randrange(1, CURVE_N)) for _ in range(n_peers)]
+    n_keys = n_peers + sum(kind == "join" for kind, _ in changes)
+    keys = [PrivateKey(rng.randrange(1, CURVE_N)) for _ in range(n_keys)]
     peers = PeerSet([
         Peer(f"inmem://p{i}", k.public_key.hex(), f"p{i}")
-        for i, k in enumerate(keys)
+        for i, k in enumerate(keys[:n_peers])
     ])
-    heads = [""] * n_peers
-    seqs = [-1] * n_peers
+    # per key, the stream positions where it creates events: [start, stop)
+    span = [[0, n_events] for _ in range(n_keys)]
+    joined, left = n_peers, n_peers
+    for kind, rnd in changes:
+        at = rnd * ROUND_EVENTS_PER_PEER * n_peers
+        if kind == "join":
+            span[joined][0] = at
+            joined += 1
+        else:
+            left -= 1
+            span[left][1] = at
+    heads = [""] * n_keys
+    seqs = [-1] * n_keys
     events = []
-    order = list(range(n_peers))
+    order = list(range(n_keys))
     while len(events) < n_events:
         rng.shuffle(order)
         for i in order:
             if len(events) >= n_events:
                 break
+            if not span[i][0] <= len(events) < span[i][1]:
+                continue
             op = ""
             if events:
-                j = rng.randrange(n_peers - 1)
+                j = rng.randrange(n_keys - 1)
                 j = j if j < i else j + 1
                 op = heads[j]
                 if op == "":
@@ -515,6 +574,30 @@ def gossip_stream(n_peers: int, n_events: int, seed: int):
             seqs[i] = idx
             events.append(e)
     return events, keys, peers
+
+
+def churn_peer_sets(keys, peers, changes):
+    """The peer-sets of ``gossip_stream(len(peers), ..., changes=changes)``
+    by round, as ``replay``'s ``peer_sets``: each change's round registers
+    the set that adds the next joiner's key or drops the last genesis
+    validator not yet gone."""
+    from babble_tpu_torch.peers.peer import Peer
+
+    n_peers = len(peers.peers)
+    by_key = {p.pub_key_hex: p for p in peers.peers}
+    out, ps = [], peers
+    joined, left = n_peers, n_peers
+    for kind, rnd in changes:
+        if kind == "join":
+            k = keys[joined]
+            ps = ps.with_new_peer(Peer(f"inmem://p{joined}",
+                                       k.public_key.hex(), f"p{joined}"))
+            joined += 1
+        else:
+            left -= 1
+            ps = ps.with_removed_peer(by_key[keys[left].public_key.hex()])
+        out.append((rnd, ps))
+    return out
 
 
 # -- replays -----------------------------------------------------------------
@@ -1209,11 +1292,13 @@ def free_ports(n: int):
             s.close()
 
 
-def tcp_cluster(n: int, accelerator: bool):
+def tcp_cluster(n: int, accelerator: bool, join_timeout=None):
     """``n`` port Nodes over loopback TCP in this process, each with the
     dummy app behind an InmemProxy (bench.py's _make_tcp_cluster), the
-    offload on the card when ``accelerator``. Returns (nodes, proxies,
-    states), the nodes initialised and not yet running."""
+    offload on the card when ``accelerator``; ``join_timeout`` (seconds a
+    join or leave may wait for consensus, node and transport) where given.
+    Returns (nodes, proxies, states), the nodes initialised and not yet
+    running."""
     from babble_tpu_torch.config.config import Config
     from babble_tpu_torch.crypto.keys import generate_key
     from babble_tpu_torch.dummy.state import State as DummyState
@@ -1233,16 +1318,18 @@ def tcp_cluster(n: int, accelerator: bool):
     addr = {p.pub_key_hex: p.net_addr for p in peers.peers}
     nodes, proxies, states = [], [], []
     for i, k in enumerate(keys):
+        extra = {} if join_timeout is None else {"join_timeout": join_timeout}
         conf = Config(heartbeat_timeout=HEARTBEAT_S,
                       slow_heartbeat_timeout=SLOW_HEARTBEAT_S,
                       log_level="error", moniker=f"t{i}",
                       accelerator=accelerator, cache_size=NODE_CACHE,
-                      suspend_limit=SUSPEND_LIMIT)
+                      suspend_limit=SUSPEND_LIMIT, **extra)
         st = DummyState()
         pr = InmemProxy(st)
         node = Node(conf, Validator(k, f"t{i}"), peers, peers,
                     InmemStore(conf.cache_size),
-                    TCPTransport(addr[k.public_key.hex()], timeout=2.0), pr)
+                    TCPTransport(addr[k.public_key.hex()], timeout=2.0,
+                                 **extra), pr)
         node.init()
         nodes.append(node)
         proxies.append(pr)
@@ -1361,14 +1448,52 @@ def check_cluster_blocks(label, nodes) -> int:
     return common
 
 
+def membership_hashgraph(genesis, app=None, cache: int = NODE_CACHE):
+    """A fresh port Hashgraph on ``genesis`` with no offload whose commit
+    runs the app (``app``, a proxy handler; the dummy app by default) and
+    applies membership changes as a node's core does: each accepted
+    PEER_ADD or PEER_REMOVE of a committed block takes effect
+    PEER_SET_EFFECTIVE_DELAY rounds after the block's round received."""
+    from babble_tpu_torch.dummy.state import State as DummyState
+    from babble_tpu_torch.hashgraph import Hashgraph, InmemStore
+    from babble_tpu_torch.hashgraph.internal_transaction import (
+        TransactionType,
+    )
+    from babble_tpu_torch.node.core import PEER_SET_EFFECTIVE_DELAY
+
+    app = app or DummyState()
+    validators = [genesis]
+
+    def commit(block):
+        resp = app.commit_handler(block)
+        block.body.state_hash = resp.state_hash
+        block.body.internal_transaction_receipts = resp.receipts
+        ps, changed = validators[0], False
+        for r in resp.receipts:
+            body = r.internal_transaction.body
+            if not r.accepted:
+                continue
+            if body.type == TransactionType.PEER_ADD:
+                ps, changed = ps.with_new_peer(body.peer), True
+            elif body.type == TransactionType.PEER_REMOVE:
+                ps, changed = ps.with_removed_peer(body.peer), True
+        if changed:
+            validators[0] = ps
+            h.store.set_peer_set(
+                block.round_received() + PEER_SET_EFFECTIVE_DELAY, ps)
+
+    h = Hashgraph(InmemStore(cache), commit)
+    h.init(genesis)
+    return h
+
+
 def replay_own_events(label, node, app=None) -> int:
     """Node ``node``'s chain against a host-oracle replay of its own events
-    in its topological order, through a fresh port Hashgraph with no
-    offload and the node's app's commit (``app``, a proxy handler; the
-    dummy app by default): every block body hash equal. Returns the number
-    of events replayed."""
-    from babble_tpu_torch.dummy.state import State as DummyState
-    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
+    in its topological order, through ``membership_hashgraph`` on the
+    node's genesis peer-set with the node's app (``app``; the dummy app by
+    default): every block body hash equal. Returns the number of events
+    replayed."""
+    from babble_tpu_torch.hashgraph import Event
 
     store = node.core.hg.store
     events = sorted(
@@ -1377,15 +1502,7 @@ def replay_own_events(label, node, app=None) -> int:
          for eh in store.participant_events(pk, -1)),
         key=lambda e: e.topological_index,
     )
-    app = app or DummyState()
-
-    def commit(block):
-        resp = app.commit_handler(block)
-        block.body.state_hash = resp.state_hash
-        block.body.internal_transaction_receipts = resp.receipts
-
-    h = Hashgraph(InmemStore(NODE_CACHE), commit)
-    h.init(node.core.genesis_peers)
+    h = membership_hashgraph(node.core.genesis_peers, app)
     for ev in events:
         h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
                                          set_wire_info=True)
@@ -1819,23 +1936,7 @@ def node_cluster_fresh() -> list:
     """``node_cluster_child`` in a fresh interpreter (a young process keeps
     every device record in its profile, see ``profile_dag_fresh``, and the
     cluster's threads start from a clean process). Returns its arms."""
-    import os
-    import subprocess
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c",
-         "import chip_smoke; chip_smoke.node_cluster_child()"],
-        cwd=here, capture_output=True, text=True, timeout=600,
-    )
-    lines = proc.stdout.splitlines()
-    sys.stdout.write("".join(ln + "\n" for ln in lines
-                             if not ln.startswith("NODES ")))
-    sys.stdout.flush()
-    if proc.returncode != 0:
-        raise AssertionError(f"node cluster process exit {proc.returncode}:"
-                             f"\n{proc.stderr[-4000:]}")
-    arms = json.loads([ln for ln in lines if ln.startswith("NODES ")][0][6:])
+    arms = FreshChild("node_cluster_child()", "NODES", {}, 600).result()
     for rec in arms:
         for key in ("buckets", "sweep_shapes"):
             if key in rec:
@@ -3916,23 +4017,7 @@ def mobile_child() -> None:
 def mobile_fresh() -> dict:
     """``mobile_child`` in a fresh interpreter with MOBILE_ENV. Returns its
     record, the buckets as a Counter of (W, E, P, S, R)."""
-    import os
-    import subprocess
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.mobile_child()"],
-        cwd=here, env={**os.environ, **MOBILE_ENV}, capture_output=True,
-        text=True, timeout=300,
-    )
-    lines = proc.stdout.splitlines()
-    sys.stdout.write("".join(ln + "\n" for ln in lines
-                             if not ln.startswith("MOBILE ")))
-    sys.stdout.flush()
-    if proc.returncode != 0:
-        raise AssertionError(f"mobile process exit {proc.returncode}:"
-                             f"\n{proc.stderr[-4000:]}")
-    rec = json.loads([ln for ln in lines if ln.startswith("MOBILE ")][0][7:])
+    rec = FreshChild("mobile_child()", "MOBILE", MOBILE_ENV, 300).result()
     rec["buckets"] = Counter({tuple(k): v for k, v in rec["buckets"]})
     return rec
 
@@ -4096,25 +4181,8 @@ def lockcheck_fresh() -> dict:
     recorder is armed at import, and named locks are chosen when they are
     built). Returns its record, the batcher's sweep shapes as a Counter of
     (B, W, P, S)."""
-    import os
-    import subprocess
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c",
-         "import chip_smoke; chip_smoke.lockcheck_child()"],
-        cwd=here, env={**os.environ, **LOCKCHECK_ENV}, capture_output=True,
-        text=True, timeout=300,
-    )
-    lines = proc.stdout.splitlines()
-    sys.stdout.write("".join(ln + "\n" for ln in lines
-                             if not ln.startswith("LOCKCHECK ")))
-    sys.stdout.flush()
-    if proc.returncode != 0:
-        raise AssertionError(f"lockcheck process exit {proc.returncode}:"
-                             f"\n{proc.stderr[-4000:]}")
-    rec = json.loads([ln for ln in lines
-                      if ln.startswith("LOCKCHECK ")][0][10:])
+    rec = FreshChild("lockcheck_child()", "LOCKCHECK", LOCKCHECK_ENV,
+                     300).result()
     rec["sweep_shapes"] = Counter({tuple(k): v
                                    for k, v in rec["sweep_shapes"]})
     return rec
@@ -4135,6 +4203,940 @@ def static_analysis_phase(name_power: str, seed: int) -> dict:
     log(f"[lockcheck] phase 13: {time.perf_counter() - t0:.1f} s; lint "
         f"{lint}; {name_power or 'nvidia-smi: not available'}")
     return row
+
+
+# -- phase 14: membership churn (BASELINE config 4) ---------------------------
+
+# (a) the replayed stream: CHURN_VALIDATORS genesis validators, then a join,
+# a leave, a join and a leave at consecutive rounds, so that windows across
+# them carry three peer-set slots or more (S 4 after the bucket); long
+# enough for CHURN_MIN_BLOCKS blocks received after the last change
+CHURN_VALIDATORS = 64
+CHURN_EVENTS = 7168
+CHURN_CHANGES = (("join", 2), ("leave", 3), ("join", 4), ("leave", 5))
+CHURN_MIN_BLOCKS = 2
+# the four arms of (a): TensorConsensus options on the card beside
+# min_window 0 and resident windows; "mesh" is the number of virtual shards
+CHURN_ARMS = (
+    ("resident sync", {"pipeline": False}),
+    ("pipelined", {"pipeline": True}),
+    ("batcher", {"pipeline": True, "batcher": True}),
+    (f"mesh N {MESH_N}", {"pipeline": True, "mesh": MESH_N}),
+)
+# The golden dynamic-membership fixtures of the JAX package's
+# tests/test_hashgraph_dyn.py (from the reference's hashgraph_dyn_test.go):
+# plays are (creator, index, self-parent, other-parent, name, transactions,
+# block signatures), as that file has them; R3 names the joiner's empty
+# self-parent. Changes are (round, "add" or "remove", key).
+DYN_R2_1 = [
+    (1, 1, "w01", "w00", "e10", [b"e10"], None),
+    (2, 1, "w02", "e10", "e21", [b"e21"], None),
+    (0, 1, "w00", "e21", "e12", [b"e12"], None),
+    (1, 2, "e10", "e12", "w11", [b"w11"], None),
+    (2, 2, "e21", "w11", "w12", [b"w12"], None),
+    (0, 2, "e12", "w12", "w10", [b"w10"], None),
+    (1, 3, "w11", "w10", "f10", [b"f10"], None),
+    (2, 3, "w12", "f10", "w22", [b"w22"], None),
+    (0, 3, "w10", "w22", "w20", [b"w20"], None),
+    (1, 4, "f10", "w20", "w21", [b"w21"], None),
+    (2, 4, "w22", "w21", "g21", [b"g21"], None),
+]
+DYN_R2_2 = [
+    (3, 0, "R3", "g21", "w33", [b"w33"], None),
+    (0, 4, "w20", "w33", "w30", [b"w30"], None),
+    (1, 5, "w21", "w30", "w31", [b"w31"], None),
+    (2, 5, "g21", "w31", "w32", [b"w32"], None),
+    (3, 1, "w33", "w32", "w43", [b"w43"], None),
+    (0, 5, "w30", "w43", "w40", [b"w40"], None),
+    (1, 6, "w31", "w40", "w41", [b"w41"], None),
+    (2, 6, "w32", "w41", "w42", [b"w42"], None),
+]
+DYN_R2_3 = [
+    (3, 2, "w43", "w42", "w53", [b"w53"], None),
+    (2, 7, "w42", "w53", "w52", [b"w52"], None),
+    (1, 7, "w41", "w52", "w51", [b"w51"], None),
+    (3, 3, "w53", "w51", "j31", [b"j31"], None),
+    (2, 8, "w52", "j31", "w62", [b"w62"], None),
+    (1, 8, "w51", "w62", "w61", [b"w61"], None),
+    (3, 4, "j31", "w61", "w63", [b"w63"], None),
+    (2, 9, "w62", "w63", "h23", [b"h23"], None),
+    (1, 9, "w61", "h23", "w71", [b"w71"], None),
+]
+DYN_USURPER_2 = [
+    (0, 4, "w20", "g21", "w30", [b"w30"], None),
+    (1, 5, "w21", "w30", "w31", [b"w31"], None),
+    (2, 5, "g21", "w31", "w32", [b"w32"], None),
+    (3, 0, "R3", "w32", "x32", [b"x32"], None),
+    (0, 5, "w30", "x32", "h03", [b"h03"], None),
+    (1, 6, "w31", "h03", "w41", [b"w41"], None),
+]
+DYN_MONOLOGUE = [
+    (0, 1, "w00", "", "w10", [b"w10"], None),
+    (0, 2, "w10", "", "w20", [b"w20"], None),
+    (0, 3, "w20", "", "w30", [b"w30"], None),
+    (0, 4, "w30", "", "w40", [b"w40"], None),
+    # the reference fixture's own payload: b"w40", not b"w50"
+    (0, 5, "w40", "", "w50", [b"w40"], None),
+    (0, 6, "w50", "", "w60", [b"w60"], None),
+    (0, 7, "w60", "", "w70", [b"w70"], None),
+    (0, 8, "w70", "", "w80", [b"w80"], None),
+]
+# name -> (genesis validators, keys, plays, changes)
+DYN_FIXTURES = {
+    "r2dyn": (3, 4, DYN_R2_1 + DYN_R2_2 + DYN_R2_3,
+              [(2, "add", 3), (5, "remove", 0)]),
+    "usurper": (3, 4, DYN_R2_1 + DYN_USURPER_2, [(10, "add", 3)]),
+    "monologue": (1, 1, DYN_MONOLOGUE, []),
+}
+# (b) the live cluster: phase 8's settings, with every window on the card
+# (at the default min_window of 192 events a 16-validator window reaches
+# the card only when a flush is backed up, and the checks need sweeps
+# across the peer-set changes and after the fast-sync's reset)
+CHURN_NODES = 16
+CHURN_ENV = {"BABBLE_ACCEL_MIN_WINDOW": "0"}
+CHURN_CADENCE_S = 5.0  # config 4: a membership change every 5 s
+CHURN_LIVE = ("join", "leave", "join", "leave", "fast-sync join")
+CHURN_JOIN_TIMEOUT_S = 120.0  # a join's or leave's wait for consensus
+CHURN_CHANGE_S = 120.0  # the most one change may take to commit
+CHURN_SETTLE_S = 120.0
+# the most (b)'s process and the whole of phase 14 may take
+CHURN_LIVE_TIMEOUT_S = 900
+CHURN_TIMEOUT_S = 600
+# (c) windows of the replayed stream tried in turn, smallest first, until
+# the sweep over one is still running on the card when invalidate() comes
+RESET_WINDOWS = (1792, 7168)
+# where no window keeps its sweep running, the sleep kernel queued on the
+# offload's stream between a sweep and its copy-out (about 0.1 s at 1.98
+# GHz)
+RESET_BUSY_CYCLES = 200_000_000
+# (d) the breaker on the card: injected failures (its threshold) and its
+# cooldown, over a 16-validator stream of BREAKER_EVENTS
+BREAKER_N = 3
+BREAKER_COOLDOWN_S = 0.5
+BREAKER_EVENTS = 512
+
+
+def dyn_fixture(name: str, seed: int):
+    """A golden dynamic-membership fixture (DYN_FIXTURES) built from port
+    classes with seeded keys: (events in insert order, the genesis
+    peer-set, [(round, peer-set)] of its changes)."""
+    from babble_tpu_torch.crypto.keys import PrivateKey
+    from babble_tpu_torch.crypto.secp256k1 import N as CURVE_N
+    from babble_tpu_torch.hashgraph.event import Event
+    from babble_tpu_torch.peers.peer import Peer
+    from babble_tpu_torch.peers.peer_set import PeerSet
+
+    n0, n_keys, plays, changes = DYN_FIXTURES[name]
+    rng = random.Random(f"{name}-{seed}")
+    keys = [PrivateKey(rng.randrange(1, CURVE_N)) for _ in range(n_keys)]
+    peer = [Peer("", k.public_key.hex(), "") for k in keys]
+    index = {"": "", "R3": ""}
+    events = []
+
+    def add(e, k, name_):
+        e.sign(keys[k])
+        index[name_] = e.hex()
+        events.append(e)
+
+    for i in range(n0):
+        add(Event.new([f"w0{i}".encode()], [], [], ["", ""],
+                      keys[i].public_key.bytes(), 0), i, f"w0{i}")
+    for to, idx, sp, op, name_, txs, sigs in plays:
+        add(Event.new([bytes(t) for t in txs or []], [], list(sigs or []),
+                      [index[sp], index[op]], keys[to].public_key.bytes(),
+                      idx), to, name_)
+    genesis = PeerSet(peer[:n0])
+    ps, peer_sets = genesis, []
+    for rnd, kind, k in changes:
+        ps = (ps.with_new_peer(peer[k]) if kind == "add"
+              else ps.with_removed_peer(peer[k]))
+        peer_sets.append((rnd, ps))
+    return events, genesis, peer_sets
+
+
+def churn_replay(label, events, peers, peer_sets, want, sync: int,
+                 sweep_events=None) -> dict:
+    """One stream through every arm of CHURN_ARMS on the card (resident
+    windows, min_window 0): K1's launches counted from 0 for each arm must
+    equal its device sweeps (the batcher's sweeps, N x the sweeps on the
+    mesh), with no fallback, no mesh fallback and nothing in flight; the
+    arms' consensus is held against ``want()`` (an oracle's
+    consensus_state) once every arm has run. Returns the arms' records and
+    K1's launch shapes: ("square", W, P, S), ("batch", B, W, P, S) or
+    ("rect", V, W, P, S)."""
+    import torch
+
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.ops import kernels
+
+    batcher = SweepBatcher.instance()
+    arms, states, shapes = [], [], Counter()
+    for arm, opts in CHURN_ARMS:
+        opts = dict(opts)
+        n = opts.pop("mesh", 0)
+        accel = TensorConsensus(device="cuda", min_window=0, resident=True,
+                                batcher=opts.pop("batcher", False),
+                                mesh=virtual_mesh(n) if n else None, **opts)
+        if sweep_events is not None:
+            accel.sweep_events = sweep_events
+        b0, s0 = batcher.stats(), Counter(batcher.sweep_shapes)
+        kernels.reset_launch_counts()
+        h, wall = replay(events, peers, accel=accel, peer_sets=peer_sets,
+                         sync=sync)
+        deadline = time.monotonic() + DRAIN_S
+        while not batcher.idle():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[churn {label}/{arm}] the sweep "
+                                     "batcher never went idle")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()["member_ss_counts"]
+        states.append(consensus_state(h))
+        del h
+        launched = accel.sweeps + accel.stale_drops
+        if accel.batcher:
+            b1 = batcher.stats()
+            expected = (b1["batch_batches"] - b0["batch_batches"]
+                        + b1["batch_singles"] - b0["batch_singles"])
+            for (B, W, P, S), k in (Counter(batcher.sweep_shapes)
+                                    - s0).items():
+                shapes[("batch", B, W, P, S) if B > 1
+                       else ("square", W, P, S)] += k
+        else:
+            expected = max(n, 1) * launched
+            for (W, _E, P, S, _R), k in accel.buckets.items():
+                shapes[("rect", W // n, W, P, S) if n
+                       else ("square", W, P, S)] += max(n, 1) * k
+        if accel.fallbacks or accel.mesh_fallbacks or accel.busy():
+            raise AssertionError(f"[churn {label}/{arm}] fallbacks "
+                                 f"{accel.fallbacks}, mesh fallbacks "
+                                 f"{accel.mesh_fallbacks}, in flight "
+                                 f"{accel.busy()}")
+        if accel.sweeps <= 0 or launches != expected:
+            raise AssertionError(f"[churn {label}/{arm}] K1 launches "
+                                 f"{launches} != {expected}, the device "
+                                 f"sweeps ({accel.sweeps} applied, "
+                                 f"{accel.stale_drops} stale)")
+        max_s = max(k[3] for k in accel.buckets)
+        arms.append({"arm": arm, "launches": launches, "sweeps": accel.sweeps,
+                     "max_s": max_s, "seconds": wall})
+        log(f"[churn {label}/{arm}] sweeps {accel.sweeps}, stale drops "
+            f"{accel.stale_drops}, K1 launches {launches}, slots up to "
+            f"{max_s} (buckets W,E,P,S,R: "
+            f"{accel.stats()['accel_buckets']}); {len(events) / wall:.1f} "
+            f"events/s ({wall:.3f} s)")
+    want_state = want()
+    for rec, got in zip(arms, states):
+        for i, what in enumerate(("events", "rounds/fame", "blocks",
+                                  "undetermined")):
+            if got[i] != want_state[i]:
+                raise AssertionError(f"[churn {label}/{rec['arm']}] {what} "
+                                     "differ from the host oracle")
+    log(f"[churn {label}] every arm equal to the host oracle "
+        f"({len(want_state[2])} blocks, {len(events)} events, peer-sets at "
+        f"rounds {[r for r, _ in peer_sets]})")
+    return {"arms": arms, "shapes": shapes}
+
+
+def churn_replayed(seed: int) -> dict:
+    """Phase 14 (a): the three golden fixtures, then a CHURN_VALIDATORS
+    stream with CHURN_CHANGES, through every arm; the stream's host oracle
+    replays in a child process meanwhile."""
+    events, keys, peers = gossip_stream(CHURN_VALIDATORS, CHURN_EVENTS, seed,
+                                        changes=CHURN_CHANGES)
+    peer_sets = churn_peer_sets(keys, peers, CHURN_CHANGES)
+    oracle = OracleProcess(events, peers, peer_sets)
+    shapes, out = Counter(), {}
+    try:
+        for name in DYN_FIXTURES:
+            ev, genesis, changes = dyn_fixture(name, seed)
+            h, _ = replay(ev, genesis, peer_sets=changes, sync=3)
+            want = consensus_state(h)
+            res = churn_replay(name, ev, genesis, changes, lambda w=want: w,
+                               sync=3, sweep_events=3)
+            shapes += res["shapes"]
+            out[name] = res["arms"]
+        summary = {}
+
+        def stream_oracle():
+            t0 = time.perf_counter()
+            summary.update(oracle.result())
+            log(f"[churn stream] waited {time.perf_counter() - t0:.2f} s for "
+                f"the oracle process ({summary['seconds']:.1f} s of replay)")
+            return summary["state"]
+
+        res = churn_replay("stream", events, peers, peer_sets, stream_oracle,
+                           sync=SYNC_EVENTS)
+    finally:
+        oracle.stop()
+    last = CHURN_CHANGES[-1][1]
+    after = sum(r > last for r in summary["rounds_received"])
+    log(f"[churn stream] blocks by round received: "
+        f"{summary['rounds_received']}")
+    if after < CHURN_MIN_BLOCKS:
+        raise AssertionError(f"[churn stream] {after} blocks received after "
+                             f"round {last}, fewer than {CHURN_MIN_BLOCKS}")
+    top = max(a["max_s"] for a in res["arms"])
+    if top < 4:
+        raise AssertionError(f"[churn stream] no window carried three "
+                             f"peer-set slots or more (S {top} at most)")
+    out["stream"] = res["arms"]
+    return {"arms": out, "fixture_shapes": shapes,
+            "stream_shapes": res["shapes"],
+            "stream": (events, peers, peer_sets, summary["state"])}
+
+
+def churn_node(genesis, current, name: str, fast_sync: bool = False):
+    """A port Node over loopback TCP with ``tcp_cluster``'s settings whose
+    key is not in ``current``, so that it joins (with ``fast_sync``, by a
+    fast-forward to a peer's anchor block). Returns (node, proxy, state),
+    the node initialised and not yet running."""
+    from babble_tpu_torch.config.config import Config
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.dummy.state import State as DummyState
+    from babble_tpu_torch.hashgraph.store import InmemStore
+    from babble_tpu_torch.net.tcp import TCPTransport
+    from babble_tpu_torch.node.node import Node
+    from babble_tpu_torch.node.validator import Validator
+    from babble_tpu_torch.proxy.proxy import InmemProxy
+
+    conf = Config(heartbeat_timeout=HEARTBEAT_S,
+                  slow_heartbeat_timeout=SLOW_HEARTBEAT_S, log_level="error",
+                  moniker=name, accelerator=True, cache_size=NODE_CACHE,
+                  suspend_limit=SUSPEND_LIMIT,
+                  join_timeout=CHURN_JOIN_TIMEOUT_S,
+                  enable_fast_sync=fast_sync)
+    st = DummyState()
+    pr = InmemProxy(st)
+    node = Node(conf, Validator(generate_key(), name), current, genesis,
+                InmemStore(conf.cache_size),
+                TCPTransport(f"127.0.0.1:{free_ports(1)[0]}", timeout=2.0,
+                             join_timeout=CHURN_JOIN_TIMEOUT_S), pr)
+    node.init()
+    return node, pr, st
+
+
+def wait_for(pred, timeout: float, what: str) -> float:
+    """Poll ``pred`` every 20 ms until it holds; returns the monotonic time
+    it did. Raises AssertionError after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timeout after {timeout:.0f} s: {what}")
+        time.sleep(0.02)
+    return time.monotonic()
+
+
+def churn_cluster(n: int = CHURN_NODES) -> dict:
+    """Phase 14 (b): ``n`` port Nodes over loopback TCP (``tcp_cluster``)
+    with the offload at its defaults on the card (the sweep batcher,
+    resident windows, pipelined sweeps; min_window from CHURN_ENV) under
+    phase 8's closed-loop load, through CHURN_LIVE: one change requested
+    every CHURN_CADENCE_S, each after the last has committed (node 0's
+    validator-set holds the joiner, or no longer the leaver). Joiners are
+    new keys; leavers leave politely (the last genesis nodes); the last
+    joiner fast-syncs. Then, with every live node past a common block:
+    identical blocks (the fast-synced node's from its anchor on), equal
+    peer-sets, node 0 equal to a host replay, no fallback on any node, K1
+    launches (counted from 0 before the nodes are built) equal to the
+    batcher's sweeps, a sweep with two peer-set slots or more, and the
+    fast-synced node's sweeps grown after its reset."""
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.node.state import State
+    from babble_tpu_torch.ops import kernels
+    from babble_tpu_torch.peers.peer_set import PeerSet
+
+    batcher = SweepBatcher.instance()
+    b0, s0 = batcher.stats(), Counter(batcher.sweep_shapes)
+    kernels.reset_launch_counts()
+    t_setup = time.monotonic()
+    nodes, proxies, states = tcp_cluster(n, True,
+                                         join_timeout=CHURN_JOIN_TIMEOUT_S)
+    genesis = nodes[0].core.genesis_peers
+    everyone = list(nodes)  # every node built, to shut down and count
+    live = list(nodes)
+    pump = Pump(list(proxies), [states[0]])
+    stop = threading.Event()
+    loader = threading.Thread(target=pump.until,
+                              args=(time.monotonic() + 3600, stop),
+                              daemon=True)
+    changes, leave_threads = [], []
+    fast = None
+    rec = {}
+    try:
+        for node in nodes:
+            node.run_async()
+        loader.start()
+        t_first = wait_for(lambda: min(x.get_last_block_index()
+                                       for x in nodes) >= 1,
+                           SETTLE_S, f"[churn live] {n} nodes never all "
+                           f"committed block 1: {node_states(nodes)}")
+        log(f"[churn live] {n} nodes up, every one past block 1 in "
+            f"{t_first - t_setup:.1f} s")
+        leavers = [nodes[-1], nodes[-2]]
+        t_next = time.monotonic()
+        for k, kind in enumerate(CHURN_LIVE):
+            time.sleep(max(0.0, t_next - time.monotonic()))
+            t_req = time.monotonic()
+            if kind == "leave":
+                node = leavers.pop(0)
+                nid = node.get_id()
+                live.remove(node)
+                pump.proxies = [proxies[nodes.index(x)] for x in live
+                                if x in nodes]
+                th = threading.Thread(target=node.leave, daemon=True)
+                th.start()
+                leave_threads.append(th)
+                committed = (lambda nid=nid:
+                             nid not in nodes[0].core.validators.by_id)
+            else:
+                node, _pr, _st = churn_node(
+                    genesis, PeerSet(list(nodes[0].core.peers.peers)),
+                    f"j{k}", fast_sync=kind == "fast-sync join")
+                everyone.append(node)
+                live.append(node)
+                nid = node.get_id()
+                node.run_async()
+                if kind == "fast-sync join":
+                    fast = node
+                committed = (lambda nid=nid:
+                             nid in nodes[0].core.validators.by_id)
+            t_commit = wait_for(committed, CHURN_CHANGE_S,
+                                f"[churn live] {kind} of {node.get_id()} "
+                                "never committed")
+            changes.append({"change": kind, "seconds": t_commit - t_req,
+                            "block": nodes[0].get_last_block_index(),
+                            "validators": len(nodes[0].core.validators)})
+            log(f"[churn live] {kind} {node.get_id()}: committed "
+                f"{t_commit - t_req:.2f} s after the request (node 0 at "
+                f"block {changes[-1]['block']}, "
+                f"{changes[-1]['validators']} validators)")
+            t_next = max(t_req + CHURN_CADENCE_S, t_commit)
+        t_ff = wait_for(lambda: fast.fast_forwards >= 1
+                        and fast.get_state() == State.BABBLING,
+                        CHURN_SETTLE_S, "[churn live] the fast-sync joiner "
+                        f"never fast-forwarded: state {fast.get_state()}")
+        fast_accel = fast.core.hg.accel
+        rec["fast_first_block"] = fast.get_last_block_index()
+        rec["fast_sweeps_at_reset"] = fast_accel.sweeps
+        rec["fast_stale_drops"] = fast_accel.stale_drops
+        log(f"[churn live] the fast-sync joiner fast-forwarded to block "
+            f"{rec['fast_first_block']} {t_ff - t_req:.2f} s after its "
+            f"request (sweeps {fast_accel.sweeps} at the reset)")
+        target = max(x.get_last_block_index() for x in live) + 2
+        wait_for(lambda: min(x.get_last_block_index() for x in live)
+                 >= target, CHURN_SETTLE_S,
+                 f"[churn live] live nodes never all reached block {target}"
+                 f": {node_states(live)}")
+        # the gossip peers of every node that did not fast-sync (the JAX
+        # package's check_peer_sets); the fast-synced node's start from its
+        # anchor frame's peer-set, which still holds a validator whose
+        # leave committed before the anchor and takes effect after it
+        rest = [x for x in live if x is not fast]
+        wait_for(lambda: len({x.core.peers.hash() for x in rest}) == 1,
+                 CHURN_SETTLE_S, "[churn live] peer-sets never converged: "
+                 + ", ".join(f"{x.get_id()}={len(x.core.peers)}"
+                             for x in rest))
+        rec["fast_peers_extra"] = sorted(
+            set(fast.core.peers.by_id) - set(nodes[0].core.peers.by_id))
+        rec["fast_sweeps_at_end"] = fast_accel.sweeps
+    finally:
+        stop.set()
+        loader.join(timeout=10)
+        t_down = time.monotonic()
+        stoppers = [threading.Thread(target=x.shutdown) for x in everyone]
+        for t in stoppers:
+            t.start()
+        for t in stoppers + leave_threads:
+            t.join(timeout=120)
+        for x in everyone:
+            with x.core_lock:  # a sync still in flight finishes first
+                pass
+        rec["shutdown_s"] = time.monotonic() - t_down
+    deadline = time.monotonic() + 60
+    while not batcher.idle():
+        if time.monotonic() > deadline:
+            raise AssertionError("[churn live] the sweep batcher never went "
+                                 "idle")
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["member_ss_counts"]
+    common = min(x.get_last_block_index() for x in live)
+    for x in live:
+        first = rec["fast_first_block"] if x is fast else 0
+        for bi in range(first, common + 1):
+            if x.get_block(bi).body.hash() != nodes[0].get_block(
+                    bi).body.hash():
+                raise AssertionError(f"[churn live] block {bi} differs "
+                                     f"between node {x.get_id()} and node 0")
+    # the peer-set consensus counts by, at the last round every live node
+    # has: one set on every node, the fast-synced one's included
+    rnd = min(x.core.hg.store.last_round() for x in live)
+    consensus_sets = {x.core.hg.store.get_peer_set(rnd).hash() for x in live}
+    if len(consensus_sets) != 1:
+        raise AssertionError(f"[churn live] {len(consensus_sets)} different "
+                             f"peer-sets at round {rnd} across live nodes")
+    accels = [x.core.hg.accel for x in everyone]
+    b1 = batcher.stats()
+    sweeps_by_shape = Counter(batcher.sweep_shapes) - s0
+    expected = (b1["batch_batches"] - b0["batch_batches"]
+                + b1["batch_singles"] - b0["batch_singles"])
+    rec.update(
+        changes=changes, common_block=common, launches=launches,
+        expected_launches=expected,
+        sweeps=sum(a.sweeps for a in accels),
+        stale_drops=sum(a.stale_drops for a in accels),
+        rebuilds=sum(a.window_state.rebuilds for a in accels),
+        forced_decisions=sum(x.core.hg.forced_decisions for x in everyone),
+        fallbacks=sum(a.fallbacks for a in accels),
+        live=len(live), built=len(everyone),
+        sweep_shapes=sweeps_by_shape,
+    )
+    if rec["fallbacks"]:
+        raise AssertionError(f"[churn live] {rec['fallbacks']} fallbacks")
+    if any(not a.batcher or not a.resident or not a.pipeline
+           or a.stats()["accel_kernel"] != "cuda" for a in accels):
+        raise AssertionError("[churn live] a node's offload is not on K1 at "
+                             "its card defaults (batcher, resident windows, "
+                             "pipelined sweeps)")
+    if launches != expected:
+        raise AssertionError(f"[churn live] K1 launches {launches} != the "
+                             f"batcher's sweeps {expected}")
+    if not any(S >= 2 for (_B, _W, _P, S) in sweeps_by_shape):
+        raise AssertionError("[churn live] no sweep carried two peer-set "
+                             f"slots: {dict(sweeps_by_shape)}")
+    if rec["fast_sweeps_at_end"] <= rec["fast_sweeps_at_reset"]:
+        raise AssertionError("[churn live] the fast-synced node's offload "
+                             "never swept after its reset")
+    rec["replayed_events"] = replay_own_events("churn live", nodes[0])
+    log(f"[churn live] {len(live)} live nodes of {len(everyone)} to block "
+        f"{common}: identical blocks (the fast-synced node's from block "
+        f"{rec['fast_first_block']}), one peer-set at round {rnd} on every "
+        f"node, equal gossip peers (the fast-synced node's beyond node 0's: "
+        f"{rec['fast_peers_extra']}), node 0 = host replay "
+        f"of {rec['replayed_events']} events, fallbacks 0; K1 launches "
+        f"{launches} = the batcher's sweeps; the fast-synced node's sweeps "
+        f"{rec['fast_sweeps_at_reset']} -> {rec['fast_sweeps_at_end']}; "
+        f"stale drops {rec['stale_drops']}, rebuilds {rec['rebuilds']}, "
+        f"decisions forced ahead of a membership change "
+        f"{rec['forced_decisions']}; "
+        f"seconds from request to commit "
+        f"{[round(c['seconds'], 2) for c in changes]}; K1 shapes (B, W, P, "
+        f"S): {json.dumps({'x'.join(map(str, k)): v for k, v in sorted(sweeps_by_shape.items())})}")
+    return rec
+
+
+def reset_in_flight(stream) -> dict:
+    """Phase 14 (c): the replayed stream's first RESET_WINDOWS[i] events
+    into a pipelined offload on the card (resident windows, no batcher),
+    one flush that launches a sweep over all of them, and — once a window
+    is found whose sweep has not landed by the time the flush returns (its
+    CUDA event not yet done), or else with the largest window's copy-out
+    queued behind RESET_BUSY_CYCLES of a sleep kernel on the offload's
+    stream — ``invalidate()`` while it runs: the sweep is dropped
+    (``stale_drops`` one more), its admission slot is free, and the rest
+    of the stream, in syncs, gives the oracle's consensus, with K1's
+    launches equal to the sweeps launched, dropped ones included."""
+    import torch
+
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
+    from babble_tpu_torch.hashgraph import accel as accel_mod
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
+    from babble_tpu_torch.ops import kernels
+
+    events, peers, peer_sets, want = stream
+    how = None
+    for n_first in sorted({min(n, len(events)) for n in RESET_WINDOWS}):
+        accel = TensorConsensus(device="cuda", min_window=0, pipeline=True,
+                                batcher=False, resident=True,
+                                sweep_events=10**9)
+        h = Hashgraph(InmemStore(1_000_000))
+        h.init(peers)
+        for r, ps in peer_sets:
+            h.store.set_peer_set(r, ps)
+        h.accel = accel
+        for ev in events[:n_first]:
+            h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
+                                             set_wire_info=True)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        h.flush_consensus()
+        inf = accel._inflight
+        running = inf is not None and not inf.done.query()
+        log(f"[churn reset] a window of {n_first} events: the sweep "
+            f"{'is still running' if running else 'had landed'} when the "
+            "flush returned")
+        if running:
+            how = f"a window of {n_first} events"
+            break
+        accel.invalidate()  # drops the landed sweep, frees its slot
+    if how is None:
+        # Every sweep outran the host's check: its last operations are
+        # small. Sweep the largest window again with a sleep kernel queued
+        # on the offload's stream between the sweep and its copy-out, as
+        # co-located work on the card would hold it, so that the copy and
+        # the sweep's event are still queued when invalidate() comes.
+        dispatch = accel._dispatch
+
+        def held(win, snap):
+            out = dispatch(win, snap)
+            torch.cuda._sleep(RESET_BUSY_CYCLES)
+            return out
+
+        accel._dispatch = held
+        try:
+            h._accel_pending = max(h._accel_pending, 1)
+            h.flush_consensus()
+        finally:
+            del accel._dispatch
+        inf = accel._inflight
+        if inf is None or inf.done.query():
+            raise AssertionError("[churn reset] no sweep was in flight behind "
+                                 "the sleep kernel")
+        how = (f"a window of {n_first} events, its copy-out behind "
+               f"{RESET_BUSY_CYCLES} clock cycles of a sleep kernel")
+        log(f"[churn reset] {how} on the offload's stream: the sweep is "
+            "still in flight when the flush returns")
+    stale0 = accel.stale_drops
+    accel.invalidate()
+    if (accel.stale_drops != stale0 + 1 or accel.busy()
+            or inf.slots is not None):
+        raise AssertionError(f"[churn reset] after invalidate(): stale drops "
+                             f"{stale0} -> {accel.stale_drops}, busy "
+                             f"{accel.busy()}, slot held "
+                             f"{inf.slots is not None}")
+    slots = accel_mod._inflight_slots()
+    free = 0
+    while slots.acquire(blocking=False):
+        free += 1
+    for _ in range(free):
+        slots.release()
+    if free != accel_mod._MAX_INFLIGHT:
+        raise AssertionError(f"[churn reset] {free} of "
+                             f"{accel_mod._MAX_INFLIGHT} admission slots free")
+    for b in range(n_first, len(events), SYNC_EVENTS):
+        for ev in events[b:b + SYNC_EVENTS]:
+            h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
+                                             set_wire_info=True)
+        h.flush_consensus()
+    deadline = time.monotonic() + DRAIN_S
+    h._accel_pending = max(h._accel_pending, 1)
+    h.flush_consensus()
+    while accel.busy():
+        if time.monotonic() > deadline:
+            raise AssertionError("[churn reset] pipelined sweep never drained")
+        time.sleep(0.001)
+        h.flush_consensus()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["member_ss_counts"]
+    got = consensus_state(h)
+    for i, what in enumerate(("events", "rounds/fame", "blocks",
+                              "undetermined")):
+        if got[i] != want[i]:
+            raise AssertionError(f"[churn reset] {what} differ from the host "
+                                 "oracle after the reset")
+    if accel.fallbacks or launches != accel.sweeps + accel.stale_drops:
+        raise AssertionError(f"[churn reset] fallbacks {accel.fallbacks}, K1 "
+                             f"launches {launches} != sweeps {accel.sweeps} "
+                             f"+ stale drops {accel.stale_drops}")
+    log(f"[churn reset] invalidate() under a running sweep ({how}): "
+        f"dropped (stale drops {accel.stale_drops}), {free} of {free} slots "
+        f"free, then {accel.sweeps} sweeps to the oracle's {len(want[2])} "
+        f"blocks; K1 launches {launches} = sweeps + the dropped ones")
+    return {"how": how, "sweeps": accel.sweeps, "launches": launches,
+            "stale_drops": accel.stale_drops}
+
+
+def breaker_on_card(seed: int) -> dict:
+    """Phase 14 (d): an offload on the card (synchronous, no resident
+    windows, no batcher) with a breaker of threshold BREAKER_N and a
+    BREAKER_COOLDOWN_S cooldown over a 16-validator stream. BREAKER_N
+    flushes whose sweep launch raises an injected store error (the one
+    failure the port's offload falls back on; a CUDA error raises) open
+    it; while it is open flushes are refused before anything is launched
+    (K1's count holds still); after the cooldown the probe sweep runs K1
+    and closes it; then consensus equals the oracle's."""
+    import torch
+
+    from babble_tpu_torch.common.breaker import CLOSED, OPEN, CircuitBreaker
+    from babble_tpu_torch.common.errors import StoreError, StoreErrorKind
+    from babble_tpu_torch.hashgraph import Event, Hashgraph, InmemStore
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
+    from babble_tpu_torch.ops import kernels, voting
+
+    events, _keys, peers = gossip_stream(16, BREAKER_EVENTS, seed)
+    oracle_h, _ = replay(events, peers)
+    want = consensus_state(oracle_h)
+    breaker = CircuitBreaker(threshold=BREAKER_N, window_s=60.0,
+                             cooldown_s=BREAKER_COOLDOWN_S)
+    accel = TensorConsensus(device="cuda", sweep_events=10**9, min_window=0,
+                            pipeline=False, resident=False, batcher=False,
+                            breaker=breaker)
+    h = Hashgraph(InmemStore(1_000_000))
+    h.init(peers)
+    h.accel = accel
+    for ev in events:
+        h.insert_event_and_run_consensus(Event(ev.body, ev.signature),
+                                         set_wire_info=True)
+    real = voting.launch_sweep
+    calls = [0]
+
+    def failing(win, device):
+        calls[0] += 1
+        raise StoreError("Event", StoreErrorKind.TOO_LATE,
+                         "injected launch failure")
+
+    kernels.reset_launch_counts()
+    voting.launch_sweep = failing
+    try:
+        for _ in range(BREAKER_N):
+            if accel.flush(h):
+                raise AssertionError("[churn breaker] a failed launch was "
+                                     "applied")
+        opened = breaker.state
+        for _ in range(BREAKER_N):
+            if accel.flush(h):
+                raise AssertionError("[churn breaker] an open breaker let a "
+                                     "flush through")
+    finally:
+        voting.launch_sweep = real
+    torch.cuda.synchronize()
+    held = kernels.launch_counts()["member_ss_counts"]
+    skips = accel.stats()["accel_breaker_skips"]
+    if (opened != OPEN or calls[0] != BREAKER_N
+            or accel.fallbacks != BREAKER_N or held != 0
+            or skips < BREAKER_N):
+        raise AssertionError(f"[churn breaker] state {opened}, launch "
+                             f"attempts {calls[0]}, fallbacks "
+                             f"{accel.fallbacks}, K1 launches {held}, skips "
+                             f"{skips}")
+    time.sleep(BREAKER_COOLDOWN_S * 1.2)
+    if not accel.flush(h) or breaker.state != CLOSED:
+        raise AssertionError(f"[churn breaker] the probe sweep did not close "
+                             f"the breaker ({breaker.state})")
+    torch.cuda.synchronize()
+    probe = kernels.launch_counts()["member_ss_counts"]
+    h._accel_pending = max(h._accel_pending, 1)
+    h.flush_consensus()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["member_ss_counts"]
+    got = consensus_state(h)
+    if got != want or probe != 1 or launches != accel.sweeps:
+        raise AssertionError(f"[churn breaker] consensus equal to the oracle "
+                             f"{got == want}; K1 launches {probe} at the "
+                             f"probe, {launches} for {accel.sweeps} sweeps")
+    st = accel.stats()
+    log(f"[churn breaker] {BREAKER_N} injected launch failures opened it "
+        f"(fallbacks {accel.fallbacks}); {BREAKER_N} flushes while open were "
+        f"refused with K1 held at 0 launches (skips {skips}); after "
+        f"{BREAKER_COOLDOWN_S} s the probe swept on K1 (1 launch) and closed "
+        f"it (probes {st['accel_breaker_probes']}, opens "
+        f"{st['accel_breaker_open']}); consensus equal to the oracle "
+        f"({len(want[2])} blocks)")
+    return {"fallbacks": accel.fallbacks, "launches": launches,
+            "probes": st["accel_breaker_probes"]}
+
+
+def churn_k1_checks(shapes: Counter, seed: int) -> dict:
+    """K1 equal to its plain version on the card, with its time, bound
+    and share of the bound, at every shape of ``shapes`` (as
+    ``churn_replay`` files them) with two peer-set slots or more. Returns
+    shape -> check_k1's record."""
+    out = {}
+    for i, key in enumerate(sorted(shapes)):
+        kind, *dims = key
+        if dims[-1] < 2:
+            continue
+        row = (check_k1_rect(tuple(dims), seed + i) if kind == "rect"
+               else check_k1(tuple(dims), seed + i))
+        out[key] = row
+        log(f"K1 {kind} {tuple(dims)} ({shapes[key]} launches in phase 14): "
+            f"equal to plain on random and edge values; kernel "
+            f"{row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.3g} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.1%} of bound")
+    return out
+
+
+def churn_rows(label: str, shapes: Counter, checked: dict, launches: dict,
+               main: str) -> list:
+    """Kernels-line rows of K1 on a phase 14 path: at each peer-set slot
+    count S >= 2 its most frequent shape there (of those ``checked``), with
+    the path's ``launches`` (the ``main`` arm's)."""
+    rows = []
+    for S in sorted({k[-1] for k in checked}):
+        at = {k: v for k, v in shapes.items() if k in checked and k[-1] == S}
+        if not at:
+            continue
+        key = max(at, key=at.get)
+        row = checked[key]
+        rows.append({
+            "name": f"member_ss_counts[{label}, S {S}]",
+            "route": "cuda",
+            "source": "babble_tpu_torch/csrc/member_ss.cu",
+            "replaces": "babble_tpu/ops/pallas_kernels.py:104",
+            "launches": launches[main],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "shape": [key[0], *row["shape"]],
+            "launches_at_shape": at[key],
+            "launches_by_arm": launches,
+        })
+    return rows
+
+
+class FreshChild:
+    """``chip_smoke.<call>`` in a fresh interpreter with ``env`` added,
+    started at once: its output (standard error merged in) passes through
+    as it comes, but for the one line that starts with ``tag``, whose JSON
+    ``result()`` returns once the child has exited 0. The child is killed
+    after ``timeout`` seconds."""
+
+    def __init__(self, call: str, tag: str, env: dict, timeout: float):
+        import os
+        import subprocess
+        import threading
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.tag = tag
+        self.record = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+            cwd=here, env={**os.environ, **env}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._timer = threading.Timer(timeout, self.proc.kill)
+        self._timer.start()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith(self.tag + " "):
+                self.record = json.loads(line[len(self.tag) + 1:])
+            else:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    def result(self):
+        try:
+            self.proc.wait()
+            self._reader.join()
+        finally:
+            self._timer.cancel()
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        if self.proc.returncode != 0 or self.record is None:
+            raise AssertionError(f"{self.tag} process exit "
+                                 f"{self.proc.returncode}")
+        return self.record
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._timer.cancel()
+
+
+def churn_live_child() -> None:
+    """Phase 14 (b) in a process of its own (CHURN_ENV): ``churn_cluster``,
+    whose record it prints as one ``CHURNLIVE`` line of JSON."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    kernels.build()
+    torch.cuda.init()
+    rec = churn_cluster()
+    rec["sweep_shapes"] = [[list(k), v] for k, v in
+                           sorted(rec["sweep_shapes"].items())]
+    print("CHURNLIVE " + json.dumps(rec), flush=True)
+
+
+def membership_child(seed: int) -> None:
+    """Phase 14's replays, in a process of their own (CHURN_ENV): (a) the
+    golden fixtures and the churn stream through every arm, (c) the
+    in-flight reset and (d) the breaker. Prints one ``MEMBERSHIP`` line of
+    JSON for the parent: the arms, K1's launch shapes, (c) and (d)."""
+    import torch
+
+    from babble_tpu_torch.ops import kernels
+
+    kernels.build()
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    replayed = churn_replayed(seed)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset = reset_in_flight(replayed["stream"])
+    breaker = breaker_on_card(seed + 400)
+    t_cd = time.perf_counter() - t0
+    log(f"[churn] (a) {t_a:.1f} s, (c) and (d) {t_cd:.1f} s")
+    print("MEMBERSHIP " + json.dumps({
+        "arms": replayed["arms"],
+        "stream_shapes": [[list(k), v] for k, v in
+                          sorted(replayed["stream_shapes"].items())],
+        "fixture_shapes": [[list(k), v] for k, v in
+                           sorted(replayed["fixture_shapes"].items())],
+        "reset": reset, "breaker": breaker,
+        "seconds": {"replayed": t_a, "reset_and_breaker": t_cd},
+    }), flush=True)
+
+
+def membership_live() -> "FreshChild":
+    """Phase 14 (b), started: ``churn_live_child`` in a fresh process. It
+    runs beside phases 11-13 and phase 14's replays (none of which times
+    the host cost of a node, and whose kernel times are medians over
+    bursts far shorter than the cluster's sparse sweeps); its result is
+    read, and K1 timed at its shapes, once it has ended."""
+    return FreshChild("churn_live_child()", "CHURNLIVE", CHURN_ENV,
+                      CHURN_LIVE_TIMEOUT_S)
+
+
+def membership_phase(name_power: str, seed: int, live: "FreshChild") -> list:
+    """Phase 14: its replays in a fresh process, then (b)'s result from
+    ``live``; then, with the card to itself, K1 against its plain version
+    at every shape with two peer-set slots or more that (a) and (b) gave
+    it. Returns the kernels-line rows."""
+    t0 = time.perf_counter()
+    rec = FreshChild(f"membership_child({seed})", "MEMBERSHIP", CHURN_ENV,
+                     CHURN_TIMEOUT_S).result()
+    lrec = live.result()
+    t_ab = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    def shapes(pairs):
+        return Counter({tuple(k): v for k, v in pairs})
+
+    stream_shapes = shapes(rec["stream_shapes"])
+    live_shapes = Counter({
+        (("batch", *k) if k[0] > 1 else ("square", *k[1:])): v
+        for k, v in shapes(lrec["sweep_shapes"]).items()})
+    checked = churn_k1_checks(stream_shapes + shapes(rec["fixture_shapes"])
+                              + live_shapes, seed + 300)
+    stream_arms = {a["arm"]: a["launches"] for a in rec["arms"]["stream"]}
+    rows = churn_rows("membership churn, replayed",
+                      Counter({k: v for k, v in stream_shapes.items()
+                               if k[0] == "square"}),
+                      checked, stream_arms, "resident sync")
+    rows += churn_rows("membership churn, live", live_shapes, checked,
+                       {"live": lrec["launches"]}, "live")
+    log(f"[churn] phase 14: the replays and the live cluster's end "
+        f"{t_ab:.1f} s after the replays started (the cluster began before "
+        f"phase 11), K1 checks {time.perf_counter() - t0:.1f} s; changes "
+        f"(kind, seconds from request to commit): "
+        f"{[(c['change'], round(c['seconds'], 2)) for c in lrec['changes']]};"
+        f" {name_power or 'nvidia-smi: not available'}")
+    return rows
 
 
 # ``kernel_ab``: phase 2's times there, through functions every version of
@@ -4277,6 +5279,9 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
+    ap.add_argument("--phase", type=int, choices=[14],
+                    help="run phase 1 (the device and the build), then only "
+                    "this phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -4304,6 +5309,17 @@ def main(argv=None) -> int:
         kernels.build()
         log(kernels.ptxas_report)
         k2_tile_table(args.seed)
+        return 0
+    if args.phase == 14:
+        t0 = time.perf_counter()
+        so = kernels.build()
+        log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
+        live = membership_live()
+        try:
+            rows = membership_phase(dev["name_power"], args.seed + 106, live)
+        finally:
+            live.stop()
+        finish(rows, dev, t_start)
         return 0
     # phase 4's stream; its host oracle replays in a child process from
     # here on, beside the card work of phases 1-3 and 5-7
@@ -4457,25 +5473,45 @@ def main(argv=None) -> int:
     ledger_gate(arms, k3_rows, dev["name_power"])
     log(f"[ledger] {time.perf_counter() - t0:.1f} s")
 
-    # Phase 11: the mesh, on virtual shards of the card; counts from 0 for
-    # each run
-    t0 = time.perf_counter()
-    rows += mesh_phase(args.seed + 200, mesh_streams, single_64,
-                       batch_arrays, batch_sm)
-    log(f"[mesh] phase 11: {time.perf_counter() - t0:.1f} s")
+    # Phase 14's live cluster, in a fresh process, from here on beside
+    # phases 11-13 (K1 counted from 0 there before its nodes are built)
+    live = membership_live()
+    try:
+        # Phase 11: the mesh, on virtual shards of the card; counts from 0
+        # for each run
+        t0 = time.perf_counter()
+        rows += mesh_phase(args.seed + 200, mesh_streams, single_64,
+                           batch_arrays, batch_sm)
+        log(f"[mesh] phase 11: {time.perf_counter() - t0:.1f} s")
 
-    # Phase 12: the mobile binding, two MobileNodes on the card in a fresh
-    # process; K1 counted from 0 there before the nodes start
-    t0 = time.perf_counter()
-    mobile = mobile_fresh()
-    rows.append(k1_row("mobile pair", k1_shapes([mobile]),
-                       {"mobile": mobile["launches"]}, "mobile",
-                       seed=args.seed + 104))
-    log(f"[mobile] phase 12: {time.perf_counter() - t0:.1f} s")
+        # Phase 12: the mobile binding, two MobileNodes on the card in a
+        # fresh process; K1 counted from 0 there before the nodes start
+        t0 = time.perf_counter()
+        mobile = mobile_fresh()
+        rows.append(k1_row("mobile pair", k1_shapes([mobile]),
+                           {"mobile": mobile["launches"]}, "mobile",
+                           seed=args.seed + 104))
+        log(f"[mobile] phase 12: {time.perf_counter() - t0:.1f} s")
 
-    # Phase 13: babblelint, then a lock-checked cluster on the card in a
-    # fresh process; K1 counted from 0 there before its nodes are built
-    rows.append(static_analysis_phase(dev["name_power"], args.seed + 105))
+        # Phase 13: babblelint, then a lock-checked cluster on the card in
+        # a fresh process; K1 counted from 0 there before its nodes are
+        # built
+        rows.append(static_analysis_phase(dev["name_power"],
+                                          args.seed + 105))
+
+        # Phase 14: membership churn, its replays in a fresh process (K1
+        # counted from 0 before each arm), then the live cluster's result
+        rows += membership_phase(dev["name_power"], args.seed + 106, live)
+    finally:
+        live.stop()
+    finish(rows, dev, t_start)
+    return 0
+
+
+def finish(rows, dev, t_start: float) -> None:
+    """The run's last lines: its time, the card's name and power limit,
+    the kernels line and the device line."""
+    import torch
 
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -4485,7 +5521,6 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -234,7 +234,7 @@ def test_native_crypto_search_order(tmp_path, monkeypatch):
         def __init__(self, path):
             loaded.append(path)
             self.bt_verify_batch = self.bt_sign = self.bt_pubkey = (
-                lambda *a: 0)
+                self.bt_sha256_batch) = (lambda *a: 0)
 
     monkeypatch.setattr(nc, "_build_at", fake_build_at)
     monkeypatch.setattr(nc.ctypes, "CDLL", FakeLib)
