@@ -17,7 +17,9 @@ demo/bombard.py picks one):
   events at the same (creator, index) with different payloads. In the
   default broadcast mode both branches are eagerly pushed to every peer
   (each honest node keeps the branch it saw first, rejects the other,
-  and records an :class:`~babble_tpu_torch.node.sentry.EquivocationProof`);
+  and records an :class:`~babble_tpu_torch.node.sentry.EquivocationProof`),
+  branch B once every peer has acked branch A, or once a harness that
+  sees every honest node hold A calls ``reveal()``;
   ``split=True`` sends branch A to one half of the peers and branch B to
   the other, alternating thereafter — the split-brain variant.
 - ``replay`` — re-push stale events (own and others') over and over;
@@ -261,6 +263,22 @@ class ByzantineNode:
             self.trans.close()
         except Exception:  # pragma: no cover
             pass
+
+    def reveal(self) -> bool:
+        """Broadcast mode: reveal branch B now, without waiting for every
+        peer's ack of branch A. A harness that sees every honest node hold
+        branch A calls it: the acks stand in for that sight, and a peer that
+        cannot ack (say, one that quarantines us for pushes whose parents it
+        lacks) would hold the reveal back. Returns whether a fork was
+        minted, and so revealed."""
+        with self._lock:
+            if self._forked:
+                self._revealed = True
+            return self._forked
+
+    def fork_index(self) -> Optional[int]:
+        """The height of the minted fork, None before it."""
+        return self._fork_index
 
     def stats(self) -> Dict[str, int]:
         return {

@@ -432,7 +432,7 @@ class Core:
                         we, ev, from_id, other_head, fork_errs, hop
                     )
                 pos = j
-        except Exception:
+        except Exception as err:
             # An event this store cannot take yet ends the batch: say its
             # creator joined in a block not committed here. With the
             # offload, the decisions on the events inserted so far wait for
@@ -442,6 +442,17 @@ class Core:
             # the error propagates (a no-op without the offload, whose
             # oracle decides at every insert).
             self.hg.flush_consensus()
+            # A fork collected before that error is evidence the node would
+            # never see: it observes only the error raised here. Say an
+            # honest peer relays the other branch of a fork and then its own
+            # event on that branch, which fails verification against our
+            # branch: without the proof on file, the sentry scores the
+            # relayer for the equivocator's fork (and can quarantine honest
+            # peers up to the framing cap). So the forks ride on the error,
+            # and Sentry.observe_rejection observes the first of them before
+            # the error itself (outside the core lock, where the node scores).
+            if fork_errs:
+                err.forks = fork_errs
             raise
 
         # Do not overwrite a non-empty head with an empty one

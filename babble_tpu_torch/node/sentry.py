@@ -340,7 +340,13 @@ class Sentry:
         and score the right peer (see the attribution note in the module
         docstring; forks resolve the creator's id via
         ``set_creator_resolver``). Returns the cause slug recorded, or
-        None when the error is not the peer's fault."""
+        None when the error is not the peer's fault. An error that ended a
+        sync batch carries the forks collected before it (``forks``, set by
+        ``Core.sync``): the first is observed before the error, so that its
+        proof is on file when the error is classified."""
+        forks = getattr(err, "forks", None)
+        if forks:
+            self.observe_rejection(forks[0], from_id)
         cause = classify_rejection(err)
         if cause is None:
             return None

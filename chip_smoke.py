@@ -34,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    phases 1-3 and 5-7, so phase 4 runs after phase 7;
 5. the all-at-once DAG pipeline (``ops.dag.run_pipeline``) on the card over
    ``snapshot_from_hashgraph`` of the 16-validator oracle and of a new
-   64-validator stream of 4096 signed events (oracle replay only), equal to
+   64-validator stream of 4096 signed events (oracle replay only, with
+   its snapshot, in a child process from the start of the run), equal to
    the host oracle on every event's round, witness, lamport and
    round-received and every witness's fame, and its strongly-see matrix
    equal to K2's plain version on the snapshot's own coordinates;
@@ -48,7 +49,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 8. a node cluster on the card, in a fresh process: 16 port Nodes over
    loopback TCP (bench.py's threaded 16-validator cell: heartbeat 0.05 s,
    slow heartbeat 0.3 s, closed-loop 100-byte transactions stamped with
-   their submit time, 8 s of warm-up, a 12 s window) in four arms —
+   their submit time, 8 s of warm-up, a 12 s window, then until every
+   node has committed block NODES_SETTLE_BLOCK) in four arms —
    oracle; the offload at its defaults (the sweep batcher and resident
    windows); the same with min_window 0; and min_window 0 with resident
    windows but without the batcher (one sweep per node) — each with identical
@@ -95,7 +97,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    eight corrupted (CORRUPTIONS) and three that take the ladder's rare
    cases, on whose verdicts K3 (at its group size and at every other), the
    plain ladder on the card, the native verifier, the Python oracle and
-   ``batch_verify`` agree; at B = 1 to 16384, K3's device ms at its group
+   ``batch_verify`` agree (the plain ladder's runs and the oracle's, host
+   bound, take place beside phase 8's cluster); at B = 1 to 16384, K3's
+   device ms at its group
    size and at the other beside its bound and K3's own count of multiplies
    (``k3_own_ms``), host ``_prepare`` and end-to-end
    ``batch_verify`` µs a signature beside the native verifier's, and the
@@ -107,7 +111,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (counted from 0 once the nodes are up), with the median time of a batch
    verification in each arm; then the bench ledger (``obs.ledger``): its
    host fingerprint must name the card, torch and CUDA and no jax, a record
-   of phase 8's tx/s and p50/p95 and phase 10's K3 ms must read back from
+   of phase 8's tx/s, p50/p95 and seconds to block 0 and phase 10's K3 ms
+   must read back from
    a history in a temporary directory, and ``obs.perfgate`` must pass five
    copies of it and fail an injected regression;
 11. the mesh (``babble_tpu_torch/parallel/``) on virtual shards: mesh
@@ -172,7 +177,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    equal to the oracle; (d) injected launch failures open the breaker, an
    open breaker launches no K1, and a probe after the cooldown closes it;
    last, once (b) has ended, K1 against its plain version, with time,
-   bound and share, at every shape of (a) and (b) with two slots or more.
+   bound and share, at every shape of (a) and (b) with two slots or more;
+15. the Byzantine fault model (BASELINE.json config 5), two arms at
+   once, each in a fresh process, started once phase 14's live cluster
+   has ended and run beside its replays: 16 validators over loopback TCP, 11 of
+   them port Nodes with the offload at its card defaults and 5
+   ``adversary.ByzantineNode``s (three ``wrong_key`` flooders, one
+   ``oversize`` pusher, one ``equivocate``, whose fork the harness reveals
+   once every honest node holds its first branch), under phase 8's
+   closed-loop load until every honest node has committed
+   BYZ_TARGET_BLOCK and the attack is caught: (b) with
+   ``BABBLE_DEVICE_VERIFY=1``, so K3 verifies every sync chunk; (c) with
+   the native host verifier. Each arm, K3 and K1 counted from 0 once its
+   nodes are up: identical blocks, node 0 equal to a host replay, no
+   offload fallback, K3 launches equal to the honest cores' batch
+   verifications with an item (0 in (c)), the single re-checks equal to
+   the items K3 rejected and both branches of the fork among K3's items
+   (in (b)), no forged event in an honest store, K1 launches equal to
+   the sweep batcher's sweeps, every adversary quarantined by every
+   honest node that rejected an offence of it that alone crosses the
+   sentry's threshold (BYZ_SENTRY), and the equivocator's proof on file
+   and verifying. (a) K3 equal to the plain ladder on the card and the
+   native verifier on every distinct item (b) gave it (one verdict per
+   item), and on a crafted set (``crafted_k3_set``: wrong keys, both fork
+   branches, r or s of 0 or n, a high s, R.x in [n, p), a key off the
+   curve, Q = -G, hashes of 0 and n, an item twice): no forged item
+   accepted. Then K3 against its plain version and timed on (b)'s real
+   batches of its most frequent and its largest B, and K1 at the shape
+   (b)'s batcher launched most often.
 
 For each live path (the replays of phases 3 and 4, the node cluster of
 phase 8: its batched waves and its per-node sweeps, phase 12's mobile
@@ -180,7 +212,7 @@ pair, phase 13's lock-checked cluster, and phase 14's replayed stream and
 live cluster at each slot count of two or more), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
 often; K3 likewise at the batch size phase 10's cluster gave it most
-often. The line before the
+often, and at phase 15's. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -202,7 +234,8 @@ each K2 kernel, and exits.
     python3 chip_smoke.py --phase 14
 
 runs phase 1 (the device and the build), then phase 14 alone, and ends
-with the kernels line (phase 14's rows) and the device line.
+with the kernels line (phase 14's rows) and the device line; ``--phase
+15`` likewise with phase 15.
 """
 
 from __future__ import annotations
@@ -678,17 +711,41 @@ def _oracle_child(send, events, peers, peer_sets) -> None:
         send.send(("error", traceback.format_exc()))
 
 
+def _dag_oracle_child(send, seed) -> None:
+    try:
+        from babble_tpu_torch.ops import dag
+
+        t0 = time.perf_counter()
+        events, _keys, peers = gossip_stream(64, EVENTS_DAG_64, seed)
+        stream_s = time.perf_counter() - t0
+        h, replay_s = replay(events, peers)
+        t0 = time.perf_counter()
+        snap = dag.snapshot_from_hashgraph(h)
+        build_s = time.perf_counter() - t0
+        send.send(("ok", (snap, oracle_decisions(h, snap.hashes),
+                          stream_s, replay_s, build_s)))
+    except BaseException:
+        import traceback
+
+        send.send(("error", traceback.format_exc()))
+
+
 class OracleProcess:
     """``oracle_summary`` in a child process, started at once, so that a
     long host oracle replays beside the card phases instead of before the
     replays it is held against. The child is spawned (the parent holds the
-    card) and touches no card; it is a daemon, ended with the script."""
+    card) and touches no card; it is a daemon, ended with the script. With
+    ``dag_seed`` it runs ``_dag_oracle_child`` instead: phase 6's
+    64-validator stream, its oracle replay, the replay's snapshot and the
+    oracle's decisions on it."""
 
-    def __init__(self, events, peers, peer_sets=()):
+    def __init__(self, events=None, peers=None, peer_sets=(), dag_seed=None):
         ctx = multiprocessing.get_context("spawn")
         self._recv, send = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=_oracle_child, daemon=True,
-                                 args=(send, events, peers, peer_sets))
+        target, args = ((_oracle_child, (send, events, peers, peer_sets))
+                        if dag_seed is None
+                        else (_dag_oracle_child, (send, dag_seed)))
+        self._proc = ctx.Process(target=target, daemon=True, args=args)
         self._proc.start()
         send.close()
 
@@ -955,25 +1012,32 @@ def k2_launched(shape, k2_at: Counter, fn):
     return out
 
 
-def dag_against_oracle(label, h, k2_at: Counter):
-    """run_pipeline on the card over ``h``'s snapshot must equal what the
-    oracle ``h`` decided, event for event, and its strongly-see matrix
-    (K2's output on the path) must equal K2's plain version on the
-    snapshot's own coordinates. Returns the snapshot."""
+def oracle_snapshot(h) -> tuple:
+    """(the snapshot of the oracle ``h``, the oracle's decisions on its
+    rows, seconds to build the snapshot)."""
+    from babble_tpu_torch.ops import dag
+
+    t0 = time.perf_counter()
+    snap = dag.snapshot_from_hashgraph(h)
+    build_s = time.perf_counter() - t0
+    return snap, oracle_decisions(h, snap.hashes), build_s
+
+
+def dag_against_oracle(label, snap, want, build_s, k2_at: Counter):
+    """run_pipeline on the card over an oracle's snapshot ``snap`` must
+    equal what the oracle decided (``want``), event for event, and its
+    strongly-see matrix (K2's output on the path) must equal K2's plain
+    version on the snapshot's own coordinates. Returns the snapshot."""
     import numpy as np
     import torch
 
     from babble_tpu_torch.ops import dag, kernels
 
-    t0 = time.perf_counter()
-    snap = dag.snapshot_from_hashgraph(h)
-    build_s = time.perf_counter() - t0
     stats = {}
     got = k2_launched(
         (1, snap.n_events, snap.n_peers), k2_at,
         lambda: dag.run_pipeline(snap, return_matrices=True, device="cuda",
                                  stats=stats))
-    want = oracle_decisions(h, snap.hashes)
     for k, v in want.items():
         if not np.array_equal(got[k], v):
             bad = int((got[k] != v).sum())
@@ -1267,11 +1331,18 @@ NODE_CACHE = 200_000
 SUSPEND_LIMIT = 1000
 # the profiled window after the measured one (defaults arm)
 PROFILE_S = 2.0
-# after the windows, with the load stopped: the block every node must reach
+# after the windows, the load going on: the block every node must reach
 # before the checks, and how long it may take (16 nodes in one process
-# reached block 1 from 0 to 31 s after the load stopped, on the H100's host)
+# reached block 1 from 0 to 31 s after the window, on the H100's host). A
+# block needs transactions: with the load stopped, phase 13's four nodes,
+# which had committed all they were given in blocks 0-2, never reached
+# block 3 (NVIDIA H100 80GB HBM3 at 700 W)
 SETTLE_BLOCK = 1
 SETTLE_S = 90.0
+# phase 8's arms settle to block 0: the window's load is the same, and on a
+# slow host block 1 came up to 77 s after the window (NVIDIA H100
+# 80GB HBM3 at 700 W), which put the whole script over its time limit
+NODES_SETTLE_BLOCK = 0
 # the arm whose nodes each sweep their own window on resident buffers
 NO_BATCHER_ARM = "min_window=0, resident, no batcher"
 
@@ -1424,12 +1495,12 @@ class UndeterminedPeaks:
             self._thread.join(timeout=10)
 
 
-def check_cluster_blocks(label, nodes) -> int:
+def check_cluster_blocks(label, nodes, least: int = SETTLE_BLOCK) -> int:
     """Every node's chain up to the common block, which must be at least
-    SETTLE_BLOCK: byte-identical bodies (tests/test_node.py::check_gossip)
-    and monotonic timestamps. Returns the common block index."""
+    ``least``: byte-identical bodies (tests/test_node.py::check_gossip) and
+    monotonic timestamps. Returns the common block index."""
     common = min(n.get_last_block_index() for n in nodes)
-    if common < SETTLE_BLOCK:
+    if common < least:
         raise AssertionError(f"[{label}] common block {common}: the cluster "
                              "did not commit; per node (state, last block, "
                              "last consensus round, undetermined events "
@@ -1592,7 +1663,7 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 settle_block: int = SETTLE_BLOCK) -> dict:
     """One arm: an ``n``-node cluster under closed-loop load, ``warmup_s``
     then a ``window_s`` measured window (and with ``profile`` a profiled
-    window after it), then, with the load stopped, until every node has
+    window after it), then, the load going on, until every node has
     committed ``settle_block`` (at most SETTLE_S), then the checks. K1's
     launches are counted from 0
     for the arm. With the sweep batcher they must equal its sweeps in the
@@ -1641,6 +1712,7 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
     try:
         for node in nodes:
             node.run_async()
+        t_up = time.monotonic()
         peaks.start()
         log(f"[nodes/{label}] {n} nodes up in "
             f"{time.perf_counter() - t_setup:.2f} s (set-up)")
@@ -1684,9 +1756,17 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
                 stop.set()
                 loader.join(timeout=10)
         t_settle = time.monotonic()
-        while (min(node.get_last_block_index() for node in nodes)
-               < settle_block and time.monotonic() - t_settle < SETTLE_S):
-            time.sleep(0.25)
+        stop = threading.Event()
+        loader = threading.Thread(
+            target=pump.until, args=(t_settle + SETTLE_S, stop), daemon=True)
+        loader.start()
+        try:
+            while (min(node.get_last_block_index() for node in nodes)
+                   < settle_block and time.monotonic() - t_settle < SETTLE_S):
+                time.sleep(0.25)
+        finally:
+            stop.set()
+            loader.join(timeout=10)
         rec["settle_s"] = time.monotonic() - t_settle
         stats = [node.get_stats_snapshot() for node in nodes]
         # the BABBLE_LOCKCHECK recorder's count as each node reports it
@@ -1740,7 +1820,12 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
             time.sleep(0.05)
         torch.cuda.synchronize()
     launches = kernels.launch_counts()["member_ss_counts"]
-    rec["common_block"] = check_cluster_blocks(f"nodes/{label}", nodes)
+    rec["common_block"] = check_cluster_blocks(f"nodes/{label}", nodes,
+                                               settle_block)
+    # seconds from the nodes' start to the last node's commit of block 0:
+    # a number every arm has (node 0 may commit nothing inside the window)
+    rec["block0_s"] = max(t for mine in node_commits for t, bi in mine
+                          if bi == 0) - t_up
     rec["node0_commit_p50_ms"] = stats[0]["commit_latency_p50_ms"]
     rec["launches"] = launches
     if not accelerator:
@@ -1841,7 +1926,7 @@ def log_arm(rec: dict, name_power: str) -> None:
         f"{ms(rec['p95_ms'])} ms ({rec['latency_samples']} tx); node 0 "
         f"commit_latency_p50_ms {rec['node0_commit_p50_ms']}; blocks "
         f"identical on every node up to block {rec['common_block']} "
-        f"(reached {rec['settle_s']:.1f} s after the load stopped; nodes "
+        f"(reached {rec['settle_s']:.1f} s after the window; nodes "
         f"stopped in {rec['shutdown_s']:.1f} s); peak undetermined events "
         f"{rec['peak_undetermined']} of the {rec['suspend_at']} at which a "
         f"node suspends ({rec['suspended_nodes']} suspended); {name_power}")
@@ -1915,7 +2000,8 @@ def node_cluster_child() -> None:
     ):
         t0 = time.perf_counter()
         rec = cluster_arm(label, acc, env, profile=prof,
-                          require_batched=acc and "BABBLE_ACCEL_BATCH" not in env)
+                          require_batched=acc and "BABBLE_ACCEL_BATCH" not in env,
+                          settle_block=NODES_SETTLE_BLOCK)
         log_arm(rec, name_power)
         log(f"[nodes/{label}] arm wall {time.perf_counter() - t0:.1f} s")
         arms.append(rec)
@@ -1932,16 +2018,22 @@ def node_cluster_child() -> None:
     print("NODES " + json.dumps(arms), flush=True)
 
 
-def node_cluster_fresh() -> list:
+def node_cluster_fresh(beside=None) -> tuple:
     """``node_cluster_child`` in a fresh interpreter (a young process keeps
     every device record in its profile, see ``profile_dag_fresh``, and the
-    cluster's threads start from a clean process). Returns its arms."""
-    arms = FreshChild("node_cluster_child()", "NODES", {}, 600).result()
+    cluster's threads start from a clean process), and ``beside()``, if
+    given, here meanwhile. Returns (its arms, what ``beside`` returned)."""
+    child = FreshChild("node_cluster_child()", "NODES", {}, 600)
+    try:
+        extra = beside() if beside is not None else None
+        arms = child.result()
+    finally:
+        child.stop()
     for rec in arms:
         for key in ("buckets", "sweep_shapes"):
             if key in rec:
                 rec[key] = Counter({tuple(k): v for k, v in rec[key]})
-    return arms
+    return arms, extra
 
 
 # -- phase 9: the command line, as processes ---------------------------------
@@ -2919,20 +3011,29 @@ def k3_bound_ms(inputs, clock_mhz: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k3_against_plain(items, clock_mhz: float) -> dict:
-    """K3 on ``items``' prepared inputs equal to its plain version on the
-    card, bool for bool; K3 timed (CUDA events, median of 30), the plain
-    version timed once (host clock), and K3's bound on these inputs."""
+def plain_on_card(items) -> tuple:
+    """(``items``' prepared inputs on the card, the plain ladder's output
+    on them, its ms: timed once, host clock)."""
     import torch
 
-    from babble_tpu_torch.ops import kernels, verify
+    from babble_tpu_torch.ops import verify
 
     inputs = verify._prepare(items, torch.device("cuda"))
-    k3 = verify.shamir(*inputs[1:])
     t0 = time.perf_counter()
     plain = verify.shamir_plain(*inputs[1:])
     torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    return inputs, plain, (time.perf_counter() - t0) * 1e3
+
+
+def k3_against_plain(items, clock_mhz: float, ahead=None) -> dict:
+    """K3 on ``items``' prepared inputs equal to its plain version on the
+    card, bool for bool; K3 timed (CUDA events, median of 30), the plain
+    version timed once (host clock), and K3's bound on these inputs.
+    ``ahead`` is ``plain_on_card(items)`` if it ran before."""
+    from babble_tpu_torch.ops import kernels, verify
+
+    inputs, plain, plain_ms = ahead or plain_on_card(items)
+    k3 = verify.shamir(*inputs[1:])
     err = int((k3.int() - plain.int()).abs().max())
     for group in kernels.ECDSA_GROUPS:  # every group size, not only B's
         got = kernels._ecdsa_shamir_at(group, *inputs[1:])
@@ -2948,23 +3049,22 @@ def k3_against_plain(items, clock_mhz: float) -> dict:
             "own_ms": k3_own_ms(inputs, group, clock_mhz)}
 
 
-def check_verdicts(items, clock_mhz: float) -> dict:
+def check_verdicts(items, clock_mhz: float, ahead) -> dict:
     """K3 (on its own and through ``batch_verify``), the plain ladder on the
     card, the native verifier and the Python oracle agree on every item's
     verdict; returns ``k3_against_plain``'s record with the verdicts'
-    counts."""
+    counts. ``ahead`` is ``verify_ahead``'s record for ``items``."""
     import numpy as np
     import torch
 
     from babble_tpu_torch.ops import verify
 
-    rec = k3_against_plain(items, clock_mhz)
+    rec = k3_against_plain(items, clock_mhz, ahead["plain"][len(items)])
     k3 = (rec["k3"] & rec["inputs"].pre_ok).cpu().numpy()
     e2e = verify.batch_verify(items, torch.device("cuda"))
     native = np.array(native_verify_items(items))
-    t0 = time.perf_counter()
-    oracle = np.array(oracle_verdicts(items))
-    rec["oracle_s"] = time.perf_counter() - t0
+    oracle = np.array(ahead["oracle"])
+    rec["oracle_s"] = ahead["oracle_s"]
     for name, got in (("K3 and its plain version", k3), ("native", native),
                       ("batch_verify", e2e)):
         if not np.array_equal(got, oracle):
@@ -3159,8 +3259,41 @@ def k3_row(label: str, rec: dict, launches: int,
     }
 
 
-def device_verification(seed: int) -> list:
-    """Phase 10; returns K3's rows of the kernels line."""
+def verify_ahead(seed: int) -> dict:
+    """Phase 10's host-bound half, run while phase 8's cluster runs in its
+    own process: the verdict batch (VERIFY_N signatures, the ladder's rare
+    cases among them) and the timing batch that repeats it, the plain
+    ladder on the card at each B of VERIFY_TIMED_B (``plain_on_card``), and
+    the Python oracle's verdicts on the verdict batch, over two spawned
+    workers. Returns them for ``device_verification``."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    items = (signature_batch(VERIFY_N - 3, VERIFY_KEYS, seed)
+             + ladder_edge_items())
+    many = items * (VERIFY_TIMED_B[-1] // len(items))
+    items_s = time.perf_counter() - t0
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool:
+        t1 = time.perf_counter()
+        parts = [pool.submit(_oracle_chunk, items[i:i + 64])
+                 for i in range(0, len(items), 64)]
+        plain = {B: plain_on_card(many[:B]) for B in VERIFY_TIMED_B}
+        oracle = [v for part in parts for v in part.result()]
+        oracle_s = time.perf_counter() - t1
+    log(f"[verify] beside phase 8: {len(items)} signatures from "
+        f"{VERIFY_KEYS} keys in {items_s:.2f} s (set-up), the plain ladder "
+        "on the card at B " + ", ".join(
+            f"{B} {plain[B][2]:.1f} ms" for B in VERIFY_TIMED_B)
+        + f" (one run each), the Python oracle in {oracle_s:.1f} s; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return {"items": items, "many": many, "plain": plain, "oracle": oracle,
+            "oracle_s": oracle_s}
+
+
+def device_verification(seed: int, ahead: dict) -> list:
+    """Phase 10, on ``verify_ahead``'s record; returns K3's rows of the
+    kernels line."""
     from babble_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -3174,20 +3307,16 @@ def device_verification(seed: int) -> list:
         "a few where B G is smaller)")
     clock = sm_clock_mhz()
 
-    t0 = time.perf_counter()
-    items = (signature_batch(VERIFY_N - 3, VERIFY_KEYS, seed)
-             + ladder_edge_items())
-    log(f"[verify] {len(items)} signatures from {VERIFY_KEYS} keys in "
-        f"{time.perf_counter() - t0:.2f} s (set-up)")
-    ver = check_verdicts(items, clock)
+    items, many = ahead["items"], ahead["many"]
+    ver = check_verdicts(items, clock, ahead)
     log(f"[verify] B {ver['B']}: K3 = plain on the card = native = Python "
         f"oracle = batch_verify on every verdict ({ver['valid']} valid, "
         f"{ver['invalid']} invalid; oracle {ver['oracle_s']:.1f} s); K3 "
         f"{ver['ms']:.4f} ms, plain {ver['plain_ms']:.1f} ms")
-    many = items * (VERIFY_TIMED_B[-1] // len(items))
     timed = {}
     for B in VERIFY_TIMED_B:
-        timed[B] = ver if B == ver["B"] else k3_against_plain(many[:B], clock)
+        timed[B] = ver if B == ver["B"] else k3_against_plain(
+            many[:B], clock, ahead["plain"][B])
         log(f"[verify] B {B}: K3 = plain on the card; K3 "
             f"{timed[B]['ms']:.4f} ms, shamir_plain "
             f"{timed[B]['plain_ms']:.1f} ms (one run)")
@@ -3226,7 +3355,7 @@ def ledger_gate(arms, k3_rows, name_power: str) -> None:
     """The port's bench ledger and regression gate on the card's machine:
     ``host_info()`` must name the card (as torch and nvidia-smi do), torch
     and its CUDA build, and no jax; one record of phase 8's arms (tx/s,
-    p50/p95) and phase 10's K3 ms is appended five times to a history in a
+    p50/p95, seconds to block 0) and phase 10's K3 ms is appended five times to a history in a
     temporary directory (never the repo's), read back with the same
     results, and gated: the gate passes on the five copies, and fails on
     ``inject_regression(..., 2.0)`` of them, through ``gate`` and through
@@ -3252,7 +3381,9 @@ def ledger_gate(arms, k3_rows, name_power: str) -> None:
     fields = {
         "nodes": {_slug(r["arm"]): {"tx_per_s": r["tx_per_s"],
                                     "p50_ms": r["p50_ms"],
-                                    "p95_ms": r["p95_ms"]} for r in arms},
+                                    "p95_ms": r["p95_ms"],
+                                    "block0_s": r["block0_s"]}
+                  for r in arms},
         "k3": {_slug(r["name"]): {"k3_ms": r["ms"], "batch": r["shape"][0]}
                for r in k3_rows},
     }
@@ -5102,16 +5233,26 @@ def membership_live() -> "FreshChild":
                       CHURN_LIVE_TIMEOUT_S)
 
 
-def membership_phase(name_power: str, seed: int, live: "FreshChild") -> list:
-    """Phase 14: its replays in a fresh process, then (b)'s result from
-    ``live``; then, with the card to itself, K1 against its plain version
-    at every shape with two peer-set slots or more that (a) and (b) gave
-    it. Returns the kernels-line rows."""
+def membership_phase(name_power: str, seed: int, live: "FreshChild",
+                     beside=None) -> list:
+    """Phase 14: its replays in a fresh process, and (b)'s result from
+    ``live``; ``beside()``, if given, once (b) has ended, while the
+    replays go on (it returns a call that waits for what it started);
+    then, with the card to itself, K1 against its plain version at every
+    shape with two peer-set slots or more that (a) and (b) gave it.
+    Returns the kernels-line rows."""
     t0 = time.perf_counter()
-    rec = FreshChild(f"membership_child({seed})", "MEMBERSHIP", CHURN_ENV,
-                     CHURN_TIMEOUT_S).result()
-    lrec = live.result()
+    child = FreshChild(f"membership_child({seed})", "MEMBERSHIP", CHURN_ENV,
+                       CHURN_TIMEOUT_S)
+    try:
+        lrec = live.result()
+        join = beside() if beside is not None else None
+        rec = child.result()
+    finally:
+        child.stop()
     t_ab = time.perf_counter() - t0
+    if join is not None:
+        join()
     t0 = time.perf_counter()
 
     def shapes(pairs):
@@ -5136,6 +5277,713 @@ def membership_phase(name_power: str, seed: int, live: "FreshChild") -> list:
         f"(kind, seconds from request to commit): "
         f"{[(c['change'], round(c['seconds'], 2)) for c in lrec['changes']]};"
         f" {name_power or 'nvidia-smi: not available'}")
+    return rows
+
+
+# -- phase 15: config 5, the Byzantine fault model on the accelerated node ---
+
+BYZ_NODES = 16
+# 5 = f < 16 / 3 adversaries: three flood forged signatures (the bad-signature
+# flood), one pushes 3 x sync_limit + 1 events (K3 at large B), one forks
+BYZ_ATTACKS = ("wrong_key", "wrong_key", "wrong_key", "oversize",
+               "equivocate")
+# Every honest node must commit block BYZ_TARGET_BLOCK in each arm, and
+# every adversary be caught, within BYZ_ARM_S. Block 0 keeps phase 15 near
+# its 240 s: with K3 under attack, block 1 took 102-179 s on an NVIDIA H100
+# 80GB HBM3 at 700 W.
+BYZ_TARGET_BLOCK = 0
+BYZ_ARM_S = 180.0
+BYZ_TIMEOUT_S = 600
+# The honest nodes' sentry: one scored offence of weight 2 (invalid_signature,
+# oversized_sync, fork) quarantines, for 5 s. At the default threshold of 8
+# no flooder was quarantined in 120 s: 16 nodes in one process answer so
+# slowly that each flooder reaches an honest node about once in 25 s, and
+# the 30 s half-life forgives that (PERF.md section 6). The sentry is the
+# JAX package's at either setting (tests/test_torch_adversarial.py and
+# tests/test_torch_sim_byzantine.py, the latter at the defaults).
+BYZ_SENTRY = {"sentry_threshold": 2.0, "sentry_quarantine_s": 5.0}
+# The adversaries wait this long for an answer (the honest nodes, 2 s as in
+# tcp_cluster): a busy honest node answers an eager sync only once its
+# insert has landed.
+BYZ_RPC_TIMEOUT_S = 10.0
+
+
+def _sign_rs(d: int, h: bytes):
+    from babble_tpu_torch import native_crypto
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    return native_crypto.sign(d.to_bytes(32, "big"), h) or ref.sign(d, h)
+
+
+def hostile_events(seed: int):
+    """Port Events of what a Byzantine validator sends a verifier, each
+    signed on the RFC 6979 path from seeded keys: two honest events, one
+    claiming an honest creator but signed by another key (``wrong_key``),
+    both branches of a fork at one (creator, index), r = 0, s = n, a valid
+    signature with s in n's upper half, a creator key off the curve
+    (a structural reject), a valid event of the key Q = -G (whose G + Q
+    table entry is infinite), an undecodable signature, and the first
+    honest event once more. Returns (events, expected verdicts)."""
+    from babble_tpu_torch.crypto import secp256k1 as ref
+    from babble_tpu_torch.crypto.keys import encode_signature
+    from babble_tpu_torch.hashgraph.event import Event
+
+    rng = random.Random(seed)
+    ds = [rng.randrange(1, ref.N) for _ in range(3)]
+
+    def event(d_or_pub, tx: bytes, index: int = 0, signer=None):
+        pub = (ref.pubkey_from_scalar(d_or_pub)
+               if isinstance(d_or_pub, int) else d_or_pub)
+        ev = Event.new([tx], [], [], ["", ""], ref.marshal_pubkey(pub),
+                       index, timestamp=1700000000 + index)
+        d = d_or_pub if signer is None else signer
+        if d is not None:
+            ev.signature = encode_signature(*_sign_rs(d, ev.hash()))
+        return ev
+
+    def resign(ev, r, s):
+        ev.signature = encode_signature(r, s)
+        return ev
+
+    out = [(event(ds[0], b"honest a"), True),
+           (event(ds[1], b"honest b", 1), True),
+           (event(ds[0], b"forged", 1, signer=ds[2]), False),
+           (event(ds[2], b"branch A", 2), True),
+           (event(ds[2], b"branch B", 2), True)]
+    ev = event(ds[1], b"r = 0", 2)
+    out.append((resign(ev, 0, int(ev.signature.split("|")[1], 36)), False))
+    ev = event(ds[1], b"s = n", 3)
+    out.append((resign(ev, int(ev.signature.split("|")[0], 36), ref.N),
+                False))
+    ev = event(ds[0], b"high s", 2)
+    r, s = _sign_rs(ds[0], ev.hash())
+    out.append((resign(ev, r, s if s > ref.N // 2 else ref.N - s), True))
+    off = ref.pubkey_from_scalar(ds[1])
+    out.append((event((off[0], (off[1] + 1) % ref.P), b"off the curve",
+                      signer=ds[1]), False))
+    out.append((event(ref.N - 1, b"Q = -G"), True))
+    ev = event(ds[2], b"undecodable", 3)
+    ev.signature = "not|a|signature"
+    out.append((ev, False))
+    out.append((out[0][0], True))
+    return [ev for ev, _ in out], [ok for _, ok in out]
+
+
+def hostile_items(seed: int):
+    """Raw (pub, hash, r, s) items no event of a known creator can carry
+    but a verifier must get right: a valid signature whose R.x lies in
+    [n, p), so it verifies only through r + n (r + n < p), and the same
+    with a wrong hash; r = n and s = 0; a hash equal to n and a hash of 0
+    (u1 = 0), both valid; Q = -G with a wrong hash; and one of them twice.
+    Returns (items, expected verdicts)."""
+    from babble_tpu_torch.crypto import secp256k1 as ref
+
+    rng = random.Random(seed)
+    n, p = ref.N, ref.P
+    t = 1
+    while True:  # R = (n + t, y) on the curve
+        x = n + t
+        a = (pow(x, 3, p) + 7) % p
+        y = pow(a, (p + 1) // 4, p)
+        if y * y % p == a:
+            break
+        t += 1
+    R, r = (x, y), t
+    s = rng.randrange(1, n)
+    u1 = rng.randrange(1, n)
+    u2 = r * pow(s, -1, n) % n
+    e = u1 * s % n
+    minus_u1g = ref.point_mul(n - u1, ref.G)
+    Q = ref.point_mul(pow(u2, -1, n), ref.point_add(R, minus_u1g))
+    h_rn = e.to_bytes(32, "big")
+    d = rng.randrange(1, n)
+    pub = ref.pubkey_from_scalar(d)
+    h_n = n.to_bytes(32, "big")
+    h_0 = bytes(32)
+    neg_g = (ref.GX, p - ref.GY)
+    items = [
+        (Q, h_rn, r, s, True),
+        (Q, bytes(31) + b"\x01", r, s, False),
+        (pub, h_n, ref.N, 5, False),
+        (pub, h_n, 5, 0, False),
+        (pub, h_n, *_sign_rs(d, h_n), True),
+        (pub, h_0, *_sign_rs(d, h_0), True),
+        (neg_g, h_0, *_sign_rs(n - 1, bytes(31) + b"\x07"), False),
+        ((pub[0], (pub[1] + 1) % p), h_n, *_sign_rs(d, h_n), False),
+    ]
+    items.append(items[0])
+    return [it[:4] for it in items], [it[4] for it in items]
+
+
+def crafted_k3_set(seed: int):
+    """Phase 15 (a)'s crafted set: the items of ``hostile_events`` (as the
+    node's collector gathers them) and ``hostile_items``, with the item
+    repeated inside the batch; returns (items, expected verdicts)."""
+    from babble_tpu_torch.crypto import secp256k1 as ref
+    from babble_tpu_torch.crypto.batch import collect_signature_items
+
+    events, _ = hostile_events(seed)
+    items, _ = collect_signature_items(events)
+    extra, want_extra = hostile_items(seed)
+    want = [ref.verify(*it) for it in items]
+    return items + extra, want + want_extra
+
+
+def byz_cluster(attacks):
+    """BYZ_NODES validators over loopback TCP in this process: the first
+    BYZ_NODES - len(attacks) are port Nodes as ``tcp_cluster`` makes them
+    (phase 8's settings, SUSPEND_LIMIT), the rest ``ByzantineNode``s, one
+    per attack of ``attacks``, each with its own seeded stream. Returns
+    (nodes, proxies, states, byzs), the nodes initialised and nothing
+    running."""
+    from babble_tpu_torch.adversary import ByzantineNode
+    from babble_tpu_torch.config.config import Config
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.dummy.state import State as DummyState
+    from babble_tpu_torch.hashgraph.store import InmemStore
+    from babble_tpu_torch.net.tcp import TCPTransport
+    from babble_tpu_torch.node.node import Node
+    from babble_tpu_torch.node.validator import Validator
+    from babble_tpu_torch.peers.peer import Peer
+    from babble_tpu_torch.peers.peer_set import PeerSet
+    from babble_tpu_torch.proxy.proxy import InmemProxy
+
+    keys = [generate_key() for _ in range(BYZ_NODES)]
+    peers = PeerSet([
+        Peer(f"127.0.0.1:{port}", k.public_key.hex(), f"b{i}")
+        for i, (k, port) in enumerate(zip(keys, free_ports(BYZ_NODES)))
+    ])
+    addr = {p.pub_key_hex: p.net_addr for p in peers.peers}
+    n_honest = BYZ_NODES - len(attacks)
+    nodes, proxies, states, byzs = [], [], [], []
+    for i, k in enumerate(keys):
+        conf = Config(heartbeat_timeout=HEARTBEAT_S,
+                      slow_heartbeat_timeout=SLOW_HEARTBEAT_S,
+                      log_level="error", moniker=f"b{i}",
+                      accelerator=i < n_honest,
+                      cache_size=NODE_CACHE, suspend_limit=SUSPEND_LIMIT,
+                      **BYZ_SENTRY)
+        trans = TCPTransport(addr[k.public_key.hex()],
+                             timeout=BYZ_RPC_TIMEOUT_S if i >= n_honest
+                             else 2.0)
+        if i >= n_honest:
+            byzs.append(ByzantineNode(
+                conf, Validator(k, f"b{i}"), peers, peers,
+                InmemStore(conf.cache_size), trans,
+                attack=attacks[i - n_honest], seed=i))
+            continue
+        st = DummyState()
+        pr = InmemProxy(st)
+        node = Node(conf, Validator(k, f"b{i}"), peers, peers,
+                    InmemStore(conf.cache_size), trans, pr)
+        node.init()
+        nodes.append(node)
+        proxies.append(pr)
+        states.append(st)
+    return nodes, proxies, states, byzs
+
+
+class K3Log:
+    """What K3 saw in an arm, through one wrapper of
+    ``ops.verify.batch_verify`` (which the cores' ``prevalidate_events``
+    calls; no other caller runs in the arm): K3's verdict on every item
+    (which must be the same each time an item recurs), calls by B with one
+    batch of each B, calls without an item, and the items rejected."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.verdicts = {}  # item -> K3's verdict
+        self.conflicts = 0  # an item whose verdict changed
+        self.by_b = Counter()  # calls with an item, by B
+        self.batch_at = {}  # B -> one batch of that size
+        self.empty = 0  # calls without an item (no launch)
+        self.rejected = 0  # items K3 rejected, each time it saw one
+
+    def install(self) -> None:
+        from babble_tpu_torch.ops import verify
+
+        self._orig = orig = verify.batch_verify
+
+        def batch_verify(items, device=None):
+            out = orig(items, device)
+            with self.lock:
+                if len(items):
+                    self.by_b[len(items)] += 1
+                    self.batch_at.setdefault(len(items), list(items))
+                else:
+                    self.empty += 1
+                for it, v in zip(items, out.tolist()):
+                    self.rejected += not v
+                    old = self.verdicts.setdefault(it, v)
+                    self.conflicts += old != v
+            return out
+
+        verify.batch_verify = batch_verify
+
+    def remove(self) -> None:
+        from babble_tpu_torch.ops import verify
+
+        verify.batch_verify = self._orig
+
+
+def struck(core, byz):
+    """``byz``'s record at ``core``'s sentry when ``core`` rejected one of
+    its pushes for an offence that crosses the sentry's threshold on its
+    own (with BYZ_SENTRY: a forged signature, an oversized push, a fork),
+    else None. A push whose events only failed on an unknown parent (the
+    adversary's newest event, not yet gossiped) scores a quarter point and
+    is not counted."""
+    rec = core.sentry.suspects()["peers"].get(str(byz.core.validator.id()))
+    if rec is None:
+        return None
+    w, t = core.sentry.weights, core.sentry.threshold
+    return rec if any(w.get(c, 1.0) >= t for c in rec["causes"]) else None
+
+
+def caught_adversaries(byzs, cores) -> set:
+    """The adversaries of ``byzs`` that are quarantined (now or before) by
+    every honest core that ``struck`` them, and by one at least; the
+    equivocator once its proof is on file too: the reference soaks'
+    predicate (tests/test_byzantine.py), per adversary."""
+    out = set()
+    for byz in byzs:
+        bid = str(byz.core.validator.id())
+        pushed = [r for r in (struck(c, byz) for c in cores) if r]
+        if not pushed or any(r["quarantines"] < 1 for r in pushed):
+            continue
+        if byz.attack == "equivocate":
+            pub = byz.core.validator.public_key_hex().upper()
+            if not any(p.creator.upper() == pub
+                       for c in cores for p in c.sentry.proofs()):
+                continue
+        out.add(f"{byz.attack}:{bid}")
+    return out
+
+
+def forged_in_stores(nodes, byzs) -> tuple:
+    """(events of the adversaries in the honest nodes' stores, those whose
+    signature the native verifier rejects): the second must be 0, or a
+    forged event entered a DAG."""
+    from babble_tpu_torch.crypto.batch import collect_signature_items
+
+    held, bad = 0, 0
+    for node in nodes:
+        store = node.core.hg.store
+        with node.core_lock:
+            events = [store.get_event(h) for byz in byzs
+                      for h in store.participant_events(
+                          byz.core.validator.public_key_hex(), -1)]
+        items, spans = collect_signature_items(events)
+        ok = native_verify_items(items) if items else []
+        held += len(events)
+        bad += sum(not (good and all(ok[s:s + n]))
+                   for _, s, n, good in spans)
+    return held, bad
+
+
+def byz_arm(label: str, device_verify: bool) -> dict:
+    """One arm of phase 15: BYZ_NODES validators, BYZ_ATTACKS of them
+    Byzantine, each started with ``run_async``, under phase 8's closed-loop
+    load until every honest node has committed block BYZ_TARGET_BLOCK and
+    every adversary is caught. The honest nodes verify every sync chunk on
+    K3 from the start with ``device_verify`` (the caller sets
+    ``BABBLE_DEVICE_VERIFY``), on the host without it. The equivocator
+    reveals its second branch once every honest node holds its first
+    (``ByzantineNode.reveal``): its own wait for every peer's ack came late
+    or never among 16 nodes on K3.
+    Checks identical blocks, node 0's chain against a host replay of its
+    events, no offload fallback; K3 launches (counted from 0 once the nodes
+    are up) equal to the honest cores' batch verifications with an item,
+    or none on the host; the single re-checks equal to the items K3
+    rejected (every event here carries one signature); no forged event in
+    an honest store; K1 launches (from 0 likewise) equal to the sweep
+    batcher's sweeps; every adversary quarantined by every honest node that
+    ``struck`` it, and the equivocator's proof on file and verifying.
+    Returns (the arm's record, its K3Log)."""
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.crypto.batch import collect_signature_items
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.node.sentry import EquivocationProof
+    from babble_tpu_torch.ops import kernels
+
+    nodes, byzs, loader, k3 = [], [], None, K3Log()
+    stop = threading.Event()
+    times = []  # each honest core's batch verification, seconds
+    batcher = SweepBatcher.instance()
+    t_setup = time.perf_counter()
+    try:
+        nodes, proxies, states, byzs = byz_cluster(BYZ_ATTACKS)
+        cores = [node.core for node in nodes]
+        for core in cores:  # the core's own timing of its batch verification
+            def sink(stage, s, orig=core.obs.tracer.stage_sink):
+                if stage == "batch_verify":
+                    times.append(s)
+                if orig is not None:
+                    orig(stage, s)
+            core.obs.tracer.stage_sink = sink
+        k3.install()
+        kernels.reset_launch_counts()
+        batch0, shapes0 = batcher.stats(), Counter(batcher.sweep_shapes)
+        log(f"[byz/{label}] {len(nodes)} honest nodes and {len(byzs)} "
+            f"Byzantine up in {time.perf_counter() - t_setup:.2f} s "
+            "(set-up)")
+        t0 = time.monotonic()
+        for x in nodes + byzs:
+            x.run_async()
+        loader = threading.Thread(
+            target=Pump(proxies, states).until,
+            args=(t0 + BYZ_ARM_S, stop), daemon=True)
+        loader.start()
+        eq = next(b for b in byzs if b.attack == "equivocate")
+        eq_id = eq.core.validator.id()
+        blocks_at, caught_at, caught_s, revealed_s = {}, {}, None, None
+        while time.monotonic() - t0 < BYZ_ARM_S:
+            at = eq.fork_index()
+            if revealed_s is None and at is not None and all(
+                    c.known_events().get(eq_id, -1) >= at for c in cores):
+                eq.reveal()
+                revealed_s = time.monotonic() - t0
+            low = min(node.get_last_block_index() for node in nodes)
+            blocks_at.setdefault(low, time.monotonic() - t0)
+            if caught_s is None:
+                for name in caught_adversaries(byzs, cores):
+                    caught_at.setdefault(name, time.monotonic() - t0)
+                if len(caught_at) == len(byzs):
+                    caught_s = time.monotonic() - t0
+            if low >= BYZ_TARGET_BLOCK and caught_s is not None:
+                break
+            time.sleep(0.5)
+        run_s = time.monotonic() - t0
+    finally:
+        stop.set()
+        # all at once: each waits up to 2 s for its threads
+        stoppers = [threading.Thread(target=x.stop) for x in byzs]
+        stoppers += [threading.Thread(target=node.shutdown) for node in nodes]
+        for t in stoppers:
+            t.start()
+        for t in stoppers:
+            t.join(timeout=120)
+        if loader is not None:
+            loader.join(timeout=10)
+        for node in nodes:
+            with node.core_lock:  # a sync still in flight finishes first
+                pass
+        k3.remove()
+    deadline = time.monotonic() + 60
+    while not batcher.idle():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[byz/{label}] the sweep batcher never "
+                                 "went idle")
+        time.sleep(0.05)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    b1 = batcher.stats()
+    held, forged = forged_in_stores(nodes, byzs)
+    times = sorted(times) or [0.0]
+    # both branches of the fork: each must have reached K3 in (b)
+    at = eq.fork_index()
+    pair = ([e for e in eq.core.own_chain() if e.index() == at]
+            + [eq.core.forks[at]]) if at is not None else []
+    pair_on_k3 = [it in k3.verdicts
+                  for it in collect_signature_items(pair)[0]]
+    rec = {
+        "arm": label, "run_s": run_s, "caught_s": caught_s,
+        "revealed_s": revealed_s,
+        "caught_at_s": {k: round(v, 2) for k, v in caught_at.items()},
+        "target_s": min((t for b, t in blocks_at.items()
+                         if b >= BYZ_TARGET_BLOCK), default=None),
+        "blocks_at_s": {str(k): round(v, 2) for k, v in blocks_at.items()},
+        "launches": launches["ecdsa_shamir"], "launches_by_b": dict(k3.by_b),
+        "k1_launches": launches["member_ss_counts"],
+        "k1_sweeps": sum(b1[k] - batch0[k]
+                         for k in ("batch_batches", "batch_singles")),
+        "sweep_shapes": [[list(k), v] for k, v in
+                         (Counter(batcher.sweep_shapes) - shapes0).items()],
+        "batch_verifies": sum(c.ingest_batch_verifies for c in cores),
+        "empty_batches": k3.empty, "k3_rejected": k3.rejected,
+        "fallback_singles": sum(c.ingest_fallback_singles for c in cores),
+        "fallbacks": sum(c.hg.accel.fallbacks for c in cores),
+        "calls": len(times),
+        "median_ms": 1e3 * statistics.median(times),
+        "p95_ms": 1e3 * _pct(times, 0.95),
+        "items": len(k3.verdicts), "item_conflicts": k3.conflicts,
+        "adversary_events_held": held, "forged_held": forged,
+        "fork_pair_on_k3": pair_on_k3,
+        "rejects": dict(sum((Counter(c.sentry.rejects) for c in cores),
+                            Counter())),
+    }
+    caught = {}
+    for byz in byzs:
+        bid = byz.core.validator.id()
+        seen = [c.sentry.suspects()["peers"].get(str(bid)) for c in cores]
+        pushed = [r for r in (struck(c, byz) for c in cores) if r]
+        pub = byz.core.validator.public_key_hex().upper()
+        caught[f"{byz.attack}:{bid}"] = {
+            "pushed_to": len(pushed),
+            "quarantined_by": sum(r["quarantines"] >= 1 for r in pushed),
+            "causes": dict(sum((Counter(r["causes"]) for r in seen if r),
+                               Counter())),
+            "pushes": byz.pushes, "forks_minted": byz.forks_minted,
+            "proofs": [p for c in cores for p in c.sentry.proofs()
+                       if p.creator.upper() == pub]}
+    honest_ids = {node.get_id() for node in nodes}
+    rec["honest_quarantined"] = sum(
+        c.sentry.suspects()["peers"].get(str(h), {}).get("quarantines", 0)
+        for c in cores for h in honest_ids)
+    log(f"[byz/{label}] {len(nodes)} honest + {len(byzs)} Byzantine: "
+        f"fork revealed at {revealed_s} s, attack caught at {caught_s} s "
+        f"({rec['caught_at_s']}); lowest block at s: {rec['blocks_at_s']} "
+        f"(ended after {run_s:.1f} s); K3 launches {rec['launches']}, batch "
+        f"verifications {rec['batch_verifies']} ({k3.empty} without an "
+        f"item), by B {dict(sorted(k3.by_b.items()))}; batch verification "
+        f"median {rec['median_ms']:.3f} ms, p95 {rec['p95_ms']:.3f} ms over "
+        f"{rec['calls']} calls; K3 rejected {k3.rejected} items, single "
+        f"re-checks {rec['fallback_singles']}; the fork's branches on K3 "
+        f"{pair_on_k3}; adversary events in honest "
+        f"stores {held}, forged {forged}; K1 launches {rec['k1_launches']}, "
+        f"the batcher's sweeps {rec['k1_sweeps']}; rejections by class "
+        f"{rec['rejects']}; adversaries (honest nodes that struck / "
+        "quarantined it, causes, pushes, proofs): "
+        + str({k: (v["pushed_to"], v["quarantined_by"], v["causes"],
+                   v["pushes"], len(v["proofs"])) for k, v in caught.items()})
+        + f"; honest nodes quarantined by honest nodes "
+        f"{rec['honest_quarantined']}")
+    common = check_cluster_blocks(f"byz/{label}", nodes, BYZ_TARGET_BLOCK)
+    if rec["fallbacks"]:
+        raise AssertionError(f"[byz/{label}] {rec['fallbacks']} offload "
+                             "fallbacks")
+    if k3.conflicts:
+        raise AssertionError(f"[byz/{label}] K3 gave one item two verdicts "
+                             f"({k3.conflicts} times)")
+    if device_verify:
+        if not 0 < rec["launches"] == sum(k3.by_b.values()):
+            raise AssertionError(f"[byz/{label}] K3 launches "
+                                 f"{rec['launches']} != batch verifications "
+                                 f"with an item {sum(k3.by_b.values())} "
+                                 "(or none)")
+        if rec["launches"] != rec["batch_verifies"] - k3.empty:
+            raise AssertionError(f"[byz/{label}] K3 launches "
+                                 f"{rec['launches']} != the cores' batch "
+                                 f"verifications {rec['batch_verifies']} "
+                                 f"less {k3.empty} without an item")
+        if pair_on_k3 != [True, True]:
+            raise AssertionError(f"[byz/{label}] the fork's two branches "
+                                 f"on K3: {pair_on_k3}")
+        if rec["fallback_singles"] != k3.rejected:
+            raise AssertionError(f"[byz/{label}] single re-checks "
+                                 f"{rec['fallback_singles']} != items K3 "
+                                 f"rejected {k3.rejected}")
+    elif rec["launches"] or k3.by_b or k3.empty:
+        raise AssertionError(f"[byz/{label}] the host arm launched K3")
+    if forged:
+        raise AssertionError(f"[byz/{label}] {forged} forged events in the "
+                             "honest nodes' stores")
+    if not 0 < rec["k1_launches"] == rec["k1_sweeps"]:
+        raise AssertionError(f"[byz/{label}] K1 launches "
+                             f"{rec['k1_launches']} != the batcher's sweeps "
+                             f"{rec['k1_sweeps']} (or none)")
+    for name, v in caught.items():
+        if not v["pushed_to"] or v["quarantined_by"] != v["pushed_to"]:
+            raise AssertionError(f"[byz/{label}] adversary {name}: "
+                                 f"quarantined by {v['quarantined_by']} of "
+                                 f"the {v['pushed_to']} honest nodes that "
+                                 "struck it")
+        if name.startswith("equivocate"):
+            if v["forks_minted"] < 1 or not v["proofs"]:
+                raise AssertionError(f"[byz/{label}] no equivocation proof "
+                                     f"for {name}")
+            for p in v["proofs"]:
+                if not (p.verify()
+                        and EquivocationProof.from_dict(p.to_dict())
+                        .verify()):
+                    raise AssertionError(f"[byz/{label}] a proof for {name} "
+                                         "does not verify")
+        v["proofs"] = len(v["proofs"])
+    rec["adversaries"] = caught
+    rec["replayed_events"] = replay_own_events(f"byz/{label}", nodes[0])
+    k3_checks = (f"K3 launches {rec['launches']} = batch verifications "
+                 "with an item, re-checks = K3's rejects" if device_verify
+                 else "no K3 launch")
+    log(f"[byz/{label}] checks passed: identical blocks to {common}, no "
+        f"fallback, {k3_checks}, no forged event held, K1 launches = the "
+        "batcher's sweeps, every adversary quarantined where it struck; "
+        f"node 0 = host replay of {rec['replayed_events']} events")
+    return rec, k3
+
+
+def k3_on_items(label: str, verdicts: dict, want: dict) -> dict:
+    """Phase 15 (a): the items K3 saw (``verdicts``: item -> K3's verdict)
+    against the plain ladder on the card and the native verifier, in
+    batches of at most 16384, and against ``want`` (item -> expected
+    verdict) on the items it names. Zero forged items may pass: a False of
+    the native verifier where K3 said True fails the run like any other
+    difference."""
+    import numpy as np
+    import torch
+
+    from babble_tpu_torch.ops import verify
+
+    items = list(verdicts)
+    k3 = np.array([verdicts[it] for it in items], dtype=bool)
+    native = np.array(native_verify_items(items), dtype=bool)
+    plain = []
+    for i in range(0, len(items), 16384):
+        inputs = verify._prepare(items[i:i + 16384], torch.device("cuda"))
+        plain.append((verify.shamir_plain(*inputs[1:])
+                      & inputs.pre_ok).cpu().numpy())
+    plain = np.concatenate(plain) if plain else np.zeros(0, dtype=bool)
+    checks = [("the plain ladder on the card", k3, plain),
+              ("the native verifier", k3, native)]
+    if want:  # the items whose verdict is known in advance
+        at = [i for i, it in enumerate(items) if it in want]
+        checks.append(("the expected verdicts", k3[at],
+                       np.array([want[items[i]] for i in at], dtype=bool)))
+    for name, mine, got in checks:
+        if not np.array_equal(mine, got):
+            bad = np.flatnonzero(mine != got)
+            raise AssertionError(f"[byz/{label}] K3 differs from {name} at "
+                                 f"{len(bad)} of {len(got)} items "
+                                 f"(forged accepted: "
+                                 f"{int((mine & ~got).sum())})")
+    rec = {"items": len(items), "valid": int(k3.sum()),
+           "invalid": int((~k3).sum()), "forged_accepted": 0}
+    log(f"[byz/{label}] K3 = plain on the card = native on {len(items)} "
+        f"distinct items ({rec['valid']} valid, {rec['invalid']} invalid); "
+        "forged items accepted: 0")
+    return rec
+
+
+# phase 15's arms: label, BABBLE_DEVICE_VERIFY. The control arm (the same
+# validators with no adversary started) ran beside them until the whole
+# script came near its time limit (PERF.md section 5 keeps its numbers).
+BYZ_ARMS = {
+    "b": ("attack, BABBLE_DEVICE_VERIFY=1", True),
+    "c": ("attack, host verifier", False),
+}
+
+
+def byz_child(arm: str, seed: int) -> None:
+    """One arm of phase 15 (BYZ_ARMS) in a process of its own, its
+    ``BABBLE_DEVICE_VERIFY`` set (or not) before anything is built; after
+    (b), (a): K3 against the plain ladder on the card and the native
+    verifier on every item (b) gave it and on the crafted set. Prints one
+    ``BYZANTINE`` line of JSON for the parent: the arm's record, and for
+    (b) (a)'s counts and one real batch of its most frequent B and one of
+    its largest, for K3's rows."""
+    import os
+
+    import torch
+
+    from babble_tpu_torch.ops import kernels, verify
+
+    label, device_verify = BYZ_ARMS[arm]
+    if device_verify:
+        os.environ["BABBLE_DEVICE_VERIFY"] = "1"
+    else:
+        os.environ.pop("BABBLE_DEVICE_VERIFY", None)
+    kernels.build()
+    torch.cuda.init()
+    t0 = time.perf_counter()
+    rec, k3 = byz_arm(label, device_verify)
+    out = {"arm": rec}
+    if device_verify:
+        items, want = crafted_k3_set(seed)
+        got = verify.batch_verify(items, torch.device("cuda"))
+        crafted = dict(zip(items, got.tolist()))
+        if any(k3.verdicts.get(it, v) != v for it, v in crafted.items()):
+            raise AssertionError("[byz] K3 gave a crafted item another "
+                                 "verdict than in the attack")
+        out["seen"] = k3_on_items("(a) the attack's items and the crafted "
+                                  "set", {**k3.verdicts, **crafted},
+                                  dict(zip(items, want)))
+        out["seen"]["crafted"] = len(crafted)
+        picks = {max(k3.by_b, key=lambda b: (k3.by_b[b], -b)), max(k3.by_b)}
+        out["batches"] = {b: [[list(pub), h.hex(), r, s]
+                              for pub, h, r, s in k3.batch_at[b]]
+                          for b in picks}
+    out["seconds"] = time.perf_counter() - t0
+    print("BYZANTINE " + json.dumps(out), flush=True)
+
+
+class Byzantine:
+    """Phase 15's arms, started at once, each in a fresh process
+    (``byz_child``; each cluster is held by its own GIL, on a host of 8
+    cores), so that they meet the same load and phase 15 takes its longest
+    arm's time. ``wait`` collects their records (and ends them on an
+    error), ``stop`` ends any still running."""
+
+    def __init__(self, seed: int):
+        # no env: the offload at its card defaults
+        self.children = {arm: FreshChild(f"byz_child({arm!r}, {seed})",
+                                         "BYZANTINE", {}, BYZ_TIMEOUT_S)
+                         for arm in BYZ_ARMS}
+        self.t0 = time.perf_counter()
+        self.recs, self.t_arms = None, None
+
+    def wait(self) -> None:
+        if self.recs is None:
+            try:
+                self.recs = {arm: child.result()
+                             for arm, child in self.children.items()}
+            finally:
+                self.stop()
+            self.t_arms = time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        for child in self.children.values():
+            child.stop()
+
+
+def byzantine_phase(name_power: str, arms: Byzantine, seed: int) -> list:
+    """Phase 15's end: the arms' results, then, with the card to itself,
+    K3 against its plain version and timed on (b)'s real batches of its
+    most frequent and its largest B, and K1 at the shape (b)'s sweep
+    batcher launched most often. Returns the rows of the kernels line."""
+    arms.wait()
+    recs, t0, t_arms = arms.recs, arms.t0, arms.t_arms
+    attack, host = recs["b"]["arm"], recs["c"]["arm"]
+    by_b = Counter({int(b): n for b, n in attack["launches_by_b"].items()})
+    most = max(by_b, key=lambda b: (by_b[b], -b))
+    clock = sm_clock_mhz()
+    rows = []
+    for b, batch in sorted(recs["b"]["batches"].items(),
+                           key=lambda kv: int(kv[0])):
+        b = int(b)
+        items = [(tuple(pub), bytes.fromhex(h), r, s)
+                 for pub, h, r, s in batch]
+        k3 = k3_against_plain(items, clock)
+        name = ("phase 15 attack, most frequent B" if b == most
+                else "phase 15 attack, largest B")
+        log(f"[byz] K3 at B {b} ({name}, {by_b[b]} launches in (b)): = "
+            f"plain on the card; {k3['ms']:.4f} ms at G {k3['group']}, "
+            f"plain {k3['plain_ms']:.1f} ms, bound {k3['bound'][0]:.4g} ms "
+            f"({k3['bound'][1]}, {k3['bound'][0] / k3['ms']:.2%} of it)")
+        rows.append(k3_row(name, k3, by_b[b], attack["launches"]))
+    shapes = Counter()
+    for (B, W, P, S), n in attack["sweep_shapes"]:
+        shapes[(W, P, S) if B == 1 else (B, W, P, S)] += n
+    rows.append(k1_row("phase 15 attack", shapes,
+                       {"b": attack["k1_launches"],
+                        "c": host["k1_launches"]}, "b", seed=seed))
+    seen = recs["b"]["seen"]
+    log(f"[byz] phase 15: {time.perf_counter() - t0:.1f} s from its start "
+        f"(the arms at once, {t_arms:.1f} s: "
+        + ", ".join(f"{arm} {r['seconds']:.1f}" for arm, r in recs.items())
+        + f" with (a) after (b)); seconds to block {BYZ_TARGET_BLOCK} (to "
+        f"the fork's reveal, to the attack caught): with K3 "
+        f"{attack['target_s']} ({attack['revealed_s']}, "
+        f"{attack['caught_s']}), with the host verifier {host['target_s']} "
+        f"({host['revealed_s']}, {host['caught_s']}); batch verification "
+        f"median / p95 ms: K3 {attack['median_ms']:.3f} / "
+        f"{attack['p95_ms']:.3f}, host {host['median_ms']:.3f} / "
+        f"{host['p95_ms']:.3f}; K3 on {seen['items']} distinct items of (b) "
+        f"and the crafted set ({seen['crafted']}): forged accepted 0; "
+        f"{name_power or 'nvidia-smi: not available'}")
     return rows
 
 
@@ -5279,7 +6127,7 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
-    ap.add_argument("--phase", type=int, choices=[14],
+    ap.add_argument("--phase", type=int, choices=[14, 15],
                     help="run phase 1 (the device and the build), then only "
                     "this phase")
     args = ap.parse_args(argv)
@@ -5321,6 +6169,13 @@ def main(argv=None) -> int:
             live.stop()
         finish(rows, dev, t_start)
         return 0
+    if args.phase == 15:
+        t0 = time.perf_counter()
+        so = kernels.build()
+        log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
+        finish(byzantine_phase(dev["name_power"], Byzantine(args.seed + 107),
+                               args.seed + 108), dev, t_start)
+        return 0
     # phase 4's stream; its host oracle replays in a child process from
     # here on, beside the card work of phases 1-3 and 5-7
     t0 = time.perf_counter()
@@ -5330,6 +6185,9 @@ def main(argv=None) -> int:
     log(f"[64] stream: {len(events64)} signed events in "
         f"{time.perf_counter() - t0:.2f} s, its oracle started in a child "
         "process (set-up)")
+    # phase 6's 64-validator stream and its oracle, in a child process
+    # from here on likewise
+    dag64_proc = OracleProcess(dag_seed=args.seed + 2)
     t0 = time.perf_counter()
     so = kernels.build()
     log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}\n"
@@ -5385,15 +6243,14 @@ def main(argv=None) -> int:
 
     # Phases 5 and 6: the DAG pipeline, K2's path; counts from 0 to here
     t0 = time.perf_counter()
-    events, _keys, peers = gossip_stream(64, EVENTS_DAG_64, args.seed + 2)
-    dag64, dag64_s = replay(events, peers)
-    log(f"[dag 64] stream: {len(events)} signed events, oracle replay "
-        f"{dag64_s:.2f} s ({time.perf_counter() - t0:.2f} s with the stream; "
-        f"set-up)")
+    snap64, want64_dag, stream_s, dag64_s, build64_s = dag64_proc.result()
+    log(f"[dag 64] stream: {EVENTS_DAG_64} signed events in {stream_s:.2f} "
+        f"s, oracle replay {dag64_s:.2f} s, in a child process (waited "
+        f"{time.perf_counter() - t0:.2f} s; set-up)")
     k2_at = Counter()  # K2 launches on the path, by (B, E, P)
     kernels.reset_launch_counts()
-    snap16 = dag_against_oracle("16", oracle16, k2_at)
-    snap64 = dag_against_oracle("64", dag64, k2_at)
+    snap16 = dag_against_oracle("16", *oracle_snapshot(oracle16), k2_at)
+    snap64 = dag_against_oracle("64", snap64, want64_dag, build64_s, k2_at)
     oracle_launches = kernels.launch_counts()
     syn, batch_arrays, batch_sm = dag_against_cpu(k2_at)
     launches = kernels.launch_counts()
@@ -5438,10 +6295,12 @@ def main(argv=None) -> int:
     del h64
 
     # Phase 8: 16 nodes on the card in one (fresh) process; counts from 0
-    # to the end of each arm, in that process
+    # to the end of each arm, in that process; here meanwhile, phase 10's
+    # plain ladder and Python oracle
     t0 = time.perf_counter()
-    arms = node_cluster_fresh()
-    log(f"[nodes] phase 8: {time.perf_counter() - t0:.1f} s")
+    arms, ahead = node_cluster_fresh(lambda: verify_ahead(args.seed + 10))
+    log(f"[nodes] phase 8: {time.perf_counter() - t0:.1f} s (phase 10's "
+        "plain ladder and oracle beside it)")
     card = {r["arm"]: r for r in arms if "sweeps" in r}
     launches = {arm: r["launches"] for arm, r in card.items()}
     waves = Counter()
@@ -5464,7 +6323,7 @@ def main(argv=None) -> int:
     # Phase 10: device signature verification, K3; counts from 0 for the
     # node path once its nodes are up
     t0 = time.perf_counter()
-    k3_rows = device_verification(args.seed + 10)
+    k3_rows = device_verification(args.seed + 10, ahead)
     rows += k3_rows
     log(f"[verify] phase 10: {time.perf_counter() - t0:.1f} s")
 
@@ -5476,6 +6335,7 @@ def main(argv=None) -> int:
     # Phase 14's live cluster, in a fresh process, from here on beside
     # phases 11-13 (K1 counted from 0 there before its nodes are built)
     live = membership_live()
+    byz = []  # phase 15's arms, once phase 14's live cluster has ended
     try:
         # Phase 11: the mesh, on virtual shards of the card; counts from 0
         # for each run
@@ -5500,10 +6360,23 @@ def main(argv=None) -> int:
                                           args.seed + 105))
 
         # Phase 14: membership churn, its replays in a fresh process (K1
-        # counted from 0 before each arm), then the live cluster's result
-        rows += membership_phase(dev["name_power"], args.seed + 106, live)
+        # counted from 0 before each arm), then the live cluster's result.
+        # Phase 15: the Byzantine fault model (config 5), its arms at once
+        # in fresh processes (K3 and K1 counted from 0 in each once its
+        # nodes are up), started once phase 14's live cluster has ended
+        # (beside it, three 16-node clusters would share 8 cores) and run
+        # beside phase 14's replays; both end before phase 14's K1 checks
+        def start_byz():
+            byz.append(Byzantine(args.seed + 107))
+            return byz[0].wait
+
+        rows += membership_phase(dev["name_power"], args.seed + 106, live,
+                                 start_byz)
+        rows += byzantine_phase(dev["name_power"], byz[0], args.seed + 108)
     finally:
         live.stop()
+        for arms in byz:
+            arms.stop()
     finish(rows, dev, t_start)
     return 0
 

@@ -32,8 +32,11 @@ from babble_tpu_torch.hashgraph.event import Event
 from babble_tpu_torch.ops import limbs as tl
 from babble_tpu_torch.ops import verify as tv
 from chip_smoke import (
+    crafted_k3_set,
     field_edge_pairs,
+    hostile_events,
     ladder_edge_items,
+    native_verify_items,
     signature_batch,
     verify_vectors,
 )
@@ -336,3 +339,173 @@ def test_core_device_verify_on_cpu_takes_the_host_batch_verifier(monkeypatch):
         assert core.ingest_fallback_singles == 1
     else:  # no host batch verifier: insert verifies each event itself
         assert [ev.prevalidated() for ev in events] == [None] * 4
+
+
+# -- hostile items: what a Byzantine validator sends the verifier ------------
+
+
+def _jax_events(events):
+    from babble_tpu.hashgraph.event import Event as JEvent, EventBody as JBody
+
+    return [JEvent(JBody.from_dict(ev.body.to_dict()), ev.signature)
+            for ev in events]
+
+
+def test_prevalidate_hostile_chunk_equals_jax_and_scalar():
+    """A mixed chunk of honest, wrong-key, forked, out-of-range,
+    high-s, off-curve, Q = -G, undecodable and repeated events (phase 15
+    (a)'s crafted set, as events): the port's ``prevalidate_events`` on the
+    CPU (the plain ladder), the JAX package's ``prevalidate_events`` and
+    the scalar ``Event.verify()`` of either package give every event the
+    same verdict, the expected one."""
+    events, want = hostile_events(15)
+    assert len(events) <= 16
+    tv.prevalidate_events(events, device=CPU)
+    port = [ev.prevalidated() for ev in events]
+    jevents = _jax_events(events)
+    jv.prevalidate_events(jevents)
+    jax_verdicts = [ev.prevalidated() for ev in jevents]
+    scalar = [Event(ev.body, ev.signature).verify() for ev in events]
+    jscalar = [ev.verify() for ev in _jax_events(events)]
+    assert port == jax_verdicts == scalar == jscalar == want
+    assert True in want and False in want
+
+
+def test_batch_verify_crafted_items_equal_jax_native_and_oracle():
+    """Phase 15 (a)'s crafted items at B <= 32 (R.x in [n, p), so r + n < p
+    decides; r = n, s = 0; hashes 0 and n (u1 = 0); Q = -G with a wrong
+    hash; a key off the curve; an item repeated in the batch): the port's
+    plain ladder, the JAX kernel, the native verifier and the Python
+    oracle agree with the expected verdicts."""
+    items, want = crafted_k3_set(15)
+    assert len(items) <= 32 and len(set(items)) < len(items)
+    port = tv.batch_verify(items, device=CPU).tolist()
+    jax_out = jv.batch_verify(items).tolist()
+    native = native_verify_items(items)
+    assert port == jax_out == list(native) == _oracle(items) == want
+    inputs = tv._prepare(items, CPU)
+    assert bool(inputs.rn_ok.any()) and bool(inputs.table_inf[:, 3].any())
+
+
+def _core_pair(device_verify: bool, monkeypatch):
+    """Two port cores with the offload on the CPU; the receiver verifies
+    sync chunks with the device path (the plain ladder) when
+    ``device_verify``, else with the native host batch verifier."""
+    from babble_tpu_torch.hashgraph.store import InmemStore
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.node.validator import Validator
+    from babble_tpu_torch.peers.peer import Peer
+    from babble_tpu_torch.peers.peer_set import PeerSet
+    from babble_tpu_torch.proxy.proxy import dummy_commit_response
+    from babble_tpu_torch.sim.harness import sim_key
+
+    monkeypatch.setenv("BABBLE_ACCEL_MIN_WINDOW", "0")
+    keys = [sim_key(31, i) for i in range(2)]
+    ps = PeerSet([Peer("", k.public_key.hex(), "") for k in keys])
+    cores = []
+    for k in keys:
+        core = Core(Validator(k, ""), ps, ps, InmemStore(100),
+                    dummy_commit_response, accelerated_verify=True,
+                    accelerator_device=CPU)
+        core._device_verify = (lambda: True) if device_verify else (
+            lambda: False)
+        ev = Event.new([], [], [], ["", ""], k.public_key.bytes(), 0,
+                       timestamp=1700000000)
+        core.sign_and_insert_self_event(ev)
+        cores.append(core)
+    return cores
+
+
+def _hostile_sync(device_verify: bool, monkeypatch):
+    """Core 0's honest events followed by two events claiming core 0 at
+    its next index, signed by another key, synced into core 1: the
+    rejection, core 1's counters and its sentry's observation."""
+    from babble_tpu_torch.crypto import keys as pkeys
+    from babble_tpu_torch.sim.harness import sim_key
+
+    prev = pkeys.set_deterministic_signing(True)
+    try:
+        cores = _core_pair(device_verify, monkeypatch)
+        src, dst = cores
+        src.add_self_event("")
+        wires = list(src.to_wire(src.event_diff(dst.known_events())))
+        forged = []
+        for i in range(2):
+            ev = Event.new([f"forged {i}".encode()], [], [],
+                           [src.head, ""], src.validator.public_key_bytes(),
+                           src.seq + 1, timestamp=1700000001)
+            ev.sign(sim_key(31, 9))
+            src.hg.set_wire_info(ev)
+            forged.append(ev.to_wire())
+        calls = []
+        orig = tv.prevalidate_events
+
+        def counted(events, device=None):
+            calls.append(len(events))
+            return orig(events, device)
+
+        monkeypatch.setattr(tv, "prevalidate_events", counted)
+        with pytest.raises(Exception) as ei:
+            dst.sync(src.validator.id(), wires + forged)
+        cause = dst.sentry.observe_rejection(ei.value, src.validator.id())
+        accel = dst.hg.accel
+        return {"error": type(ei.value).__name__, "cause": cause,
+                "offload": (accel.busy(), accel.sweeps > 0, accel.fallbacks),
+                "known": dst.known_events()[src.validator.id()],
+                "batch_verifies": dst.ingest_batch_verifies,
+                "fallback_singles": dst.ingest_fallback_singles,
+                "sentry": dst.sentry.stats(), "device_calls": calls}
+    finally:
+        pkeys.set_deterministic_signing(prev)
+
+
+def test_core_device_verify_on_hostile_sync_equals_the_host_path(monkeypatch):
+    """A sync carrying honest and forged events, with the device verify
+    path forced on the CPU (the plain ladder, K3's plain version) and with
+    the native host batch verifier: the same rejection, the same events
+    landed, the same batch verifies and single re-checks (one for each
+    forged event, which the host rejects too), the same sentry outcome."""
+    if not native_crypto.available():
+        pytest.skip("needs the native host batch verifier to compare with")
+    device = _hostile_sync(True, monkeypatch)
+    host = _hostile_sync(False, monkeypatch)
+    assert device.pop("device_calls") == [4]
+    assert host.pop("device_calls") == []
+    assert device == host
+    assert device["error"] == "InvalidSignatureError"
+    assert device["cause"] == "invalid_signature"
+    assert device["known"] == 1  # the honest events landed
+    assert device["fallback_singles"] == 2
+    # the rejection left no sweep in flight, and the honest events were
+    # swept before it propagated
+    assert device["offload"] == (False, True, 0)
+
+
+def test_a_true_batch_verdict_is_trusted_at_insert(monkeypatch):
+    """Documents why phase 15 (a) holds K3 to the plain ladder and the
+    native verifier on every item: the core re-checks on the host only
+    the events the batch flagged False (``Core._batch_prevalidate``), so
+    a batch verifier that said True to a forged signature would let the
+    event into the DAG. Here a batch verifier that says True to everything
+    stands in for such a fault: the forged event is inserted."""
+    monkeypatch.setattr(tv, "batch_verify",
+                        lambda items, device=None: np.ones(len(items), bool))
+    from babble_tpu_torch.crypto import keys as pkeys
+    from babble_tpu_torch.sim.harness import sim_key
+
+    prev = pkeys.set_deterministic_signing(True)
+    try:
+        src, dst = _core_pair(True, monkeypatch)
+        ev = Event.new([b"forged"], [], [], [src.head, ""],
+                       src.validator.public_key_bytes(), 1,
+                       timestamp=1700000001)
+        ev.sign(sim_key(31, 9))
+        src.hg.set_wire_info(ev)
+        assert not Event(ev.body, ev.signature).verify()
+        dst.sync(src.validator.id(), list(src.to_wire(
+            src.event_diff(dst.known_events()))) + [ev.to_wire()])
+        assert dst.known_events()[src.validator.id()] == 1
+        assert dst.hg.store.get_event(ev.hex()).prevalidated() is True
+        assert dst.ingest_fallback_singles == 0
+    finally:
+        pkeys.set_deterministic_signing(prev)
