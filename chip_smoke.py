@@ -204,7 +204,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
    curve, Q = -G, hashes of 0 and n, an item twice): no forged item
    accepted. Then K3 against its plain version and timed on (b)'s real
    batches of its most frequent and its largest B, and K1 at the shape
-   (b)'s batcher launched most often.
+   (b)'s batcher launched most often;
+16. BASELINE.json config 2, the socket-proxy firehose: four ``python -m
+   babble_tpu_torch run --accelerator`` processes (each through
+   ``firehose_node``, which times ``Core._batch_prevalidate`` and writes
+   the kernels' launch counts at SIGTERM), each with its own datadir,
+   service and socket proxy, and a ``DummySocketClient`` in this process
+   as its app, phase 9's heartbeats, the offload, the sweep batcher and
+   the mempool at their defaults, under an open-loop load of 1000 tx/s
+   over the four apps (``OpenLoopPacer``: transaction i due at t0 + i /
+   1000, never skipped, a ``full`` or ``throttled`` verdict shed): 5 s of
+   warm-up, a window until every node has committed ten blocks past the
+   one it held at its start (at most 90 s), then a drain of at most 60 s;
+   in two arms one after the other, (a) ``BABBLE_DEVICE_VERIFY=1``, so K3
+   verifies every sync chunk, and (b) the host verifier. Each arm: every
+   process Babbling and none gone, identical bodies at every index all
+   four committed, every app's state holding every admitted transaction
+   exactly once and nothing shed (``exactly_once``), no offload
+   fallback, no single re-check, K1's launches equal to each process's
+   sweeps, and K3's launches after start-up equal to each process's batch
+   verifications (more than 0) in (a), none in (b); offered, admitted,
+   shed and committed transactions, committed tx/s over the window,
+   submit-to-commit p50/p95, each process's batch verification ms and
+   signatures a call, sweeps and small windows. Then K3 against its plain
+   version and timed on a real batch of (a)'s most frequent B, and K1 at
+   the processes' most frequent sweep shape if they swept.
 
 For each live path (the replays of phases 3 and 4, the node cluster of
 phase 8: its batched waves and its per-node sweeps, phase 12's mobile
@@ -212,7 +236,7 @@ pair, phase 13's lock-checked cluster, and phase 14's replayed stream and
 live cluster at each slot count of two or more), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
 often; K3 likewise at the batch size phase 10's cluster gave it most
-often, and at phase 15's. The line before the
+often, and at phase 15's and phase 16's. The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -235,7 +259,7 @@ each K2 kernel, and exits.
 
 runs phase 1 (the device and the build), then phase 14 alone, and ends
 with the kernels line (phase 14's rows) and the device line; ``--phase
-15`` likewise with phase 15.
+15`` and ``--phase 16`` likewise with phases 15 and 16.
 """
 
 from __future__ import annotations
@@ -5987,6 +6011,582 @@ def byzantine_phase(name_power: str, arms: Byzantine, seed: int) -> list:
     return rows
 
 
+# -- phase 16: BASELINE config 2, the socket-proxy firehose -------------------
+
+# BASELINE.json configs[1]: four validators, each a ``run --accelerator``
+# process with a socket-proxy app (the reference's src/proxy/socket), under
+# an open-loop firehose of FH_RATE transactions a second over the four apps
+FH_NODES = 4
+FH_RATE = 1000.0
+FH_WARMUP_S = 5.0
+# the window lasts until every node has committed FH_BLOCKS blocks past the
+# one it held at the window's start (ROADMAP M1: ten blocks in the window
+# give a tx/s that can rank two trees), at most FH_WINDOW_S; then the load
+# stops and the apps drain for at most FH_DRAIN_S
+FH_BLOCKS = 10
+FH_WINDOW_S = 90.0
+FH_DRAIN_S = 60.0
+FH_START_S = 180.0  # for every process to reach Babbling
+FH_STOP_S = 60.0  # for a process to exit after SIGTERM
+# the file each node process writes into its datadir once it has stopped
+FH_RECORD = "firehose.json"
+# SubmitTx verdicts that shed a transaction (dummy/socket_client.py)
+FH_SHED = ("full", "throttled")
+# the arms, one after the other: label, BABBLE_DEVICE_VERIFY
+FH_ARMS = {
+    "a": ("K3, BABBLE_DEVICE_VERIFY=1", True),
+    "b": ("host verifier", False),
+}
+
+
+class OpenLoopPacer:
+    """The open-loop firehose: transaction ``i`` (``stamped_tx(i)``) is due
+    at ``t0 + i / rate`` and goes to ``senders[i % len(senders)]``, each
+    sender on a thread of its own. A sender that falls behind sends its
+    backlog at once and records how far behind it was; it never skips a
+    transaction and never waits on a commit. A verdict of ``accepted``
+    admits the transaction, one of FH_SHED sheds it (it is not retried),
+    and any other verdict or a failed call is kept apart for the checks to
+    refuse."""
+
+    def __init__(self, senders, rate: float):
+        import threading
+
+        self.senders = senders
+        self.rate = rate
+        self.accepted = [[] for _ in senders]
+        self.shed = [[] for _ in senders]
+        self.other = [[] for _ in senders]  # (serial, verdict or error)
+        self.lag = [[] for _ in senders]  # seconds behind at each send
+        self._stop = threading.Event()
+        self._threads = []
+        self.t0 = None
+
+    def start(self) -> None:
+        import threading
+
+        self.t0 = time.monotonic()
+        self._threads = [threading.Thread(target=self._run, args=(k,),
+                                          daemon=True)
+                         for k in range(len(self.senders))]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, k: int) -> None:
+        send, i = self.senders[k], k
+        while not self._stop.is_set():
+            due = self.t0 + i / self.rate
+            ahead = due - time.monotonic()
+            if ahead > 0 and self._stop.wait(ahead):
+                return
+            self.lag[k].append(max(0.0, -ahead))
+            tx = stamped_tx(i)
+            try:
+                verdict = send(tx)
+            except (OSError, RuntimeError) as err:
+                self.other[k].append((i, repr(err)))
+                return
+            if verdict == "accepted":
+                self.accepted[k].append(tx)
+            elif verdict in FH_SHED:
+                self.shed[k].append(tx)
+            else:
+                self.other[k].append((i, verdict))
+            i += len(self.senders)
+
+    def stop(self) -> None:
+        """Stops every sender and waits for its call in flight."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=30)
+            if t.is_alive():
+                raise AssertionError("[firehose] a sender did not stop")
+
+    def counts(self) -> dict:
+        lags = sorted(x for per in self.lag for x in per)
+        return {
+            "offered": sum(map(len, self.lag)),
+            "admitted": sum(map(len, self.accepted)),
+            "shed": sum(map(len, self.shed)),
+            "other": [x for per in self.other for x in per],
+            "lag_ms": [1e3 * _pct(lags, 0.5), 1e3 * _pct(lags, 0.95),
+                       1e3 * (lags[-1] if lags else 0.0)],
+        }
+
+
+class AppCommits:
+    """The blocks an app (a ``DummySocketClient``) commits, each with the
+    time its ``State.CommitBlock`` reached the app."""
+
+    def __init__(self, app):
+        self.blocks = []  # (monotonic time, block index, transactions)
+        handler = app.state.commit_handler
+
+        def commit(block):
+            resp = handler(block)
+            self.blocks.append((time.monotonic(), block.index(),
+                                block.transactions()))
+            return resp
+
+        app.state.commit_handler = commit
+
+
+def exactly_once(accepted, shed, committed_by_app) -> list:
+    """Per app, its committed transactions (``committed_by_app``) against
+    those a node admitted (``accepted``) and those shed (``shed``): how many
+    it committed, and how many admitted ones it lacks, it committed more
+    than once, shed ones it committed, and ones no node admitted that it
+    committed. Exactly once means the last four are 0 for every app."""
+    want, shed = set(accepted), set(shed)
+    out = []
+    for txs in committed_by_app:
+        seen = Counter(txs)
+        out.append({"committed": len(txs),
+                    "missing": len(want - seen.keys()),
+                    "repeated": sum(1 for n in seen.values() if n > 1),
+                    "shed_committed": len(shed & seen.keys()),
+                    "unknown": len(seen.keys() - want - shed)})
+    return out
+
+
+def exactly_once_held(report) -> bool:
+    return all(r["missing"] == r["repeated"] == r["shed_committed"]
+               == r["unknown"] == 0 for r in report)
+
+
+def firehose_run(label: str, apps, last_blocks, body_hashes, alive=None,
+                 rate: float = FH_RATE, warmup_s: float = FH_WARMUP_S,
+                 blocks=FH_BLOCKS, window_s: float = FH_WINDOW_S,
+                 drain_s: float = FH_DRAIN_S) -> dict:
+    """Phase 16's load and checks over a running cluster, whatever hosts
+    its nodes: ``apps`` are its ``DummySocketClient``s (app ``k`` beside
+    node ``k``), ``last_blocks()`` gives every node's last block index,
+    ``body_hashes(i)`` every node's body hash of block ``i`` and
+    ``alive()`` raises if a node has gone. An ``OpenLoopPacer`` at ``rate``
+    over the apps, ``warmup_s`` of warm-up, then the window: until every
+    node has committed ``blocks`` blocks past the one it held at the
+    window's start (with ``blocks`` None, ``window_s`` always), at most
+    ``window_s``; then the load stops and the apps drain until each holds
+    every admitted transaction, at most ``drain_s``. Checks: the window
+    reached its blocks, no verdict or call other than admitted or shed,
+    identical bodies at every index all nodes committed, and every app's
+    state holding every admitted transaction exactly once and nothing shed
+    (``exactly_once``). Returns the record."""
+    import struct
+
+    alive = alive or (lambda: None)
+    commits = [AppCommits(app) for app in apps]
+    pacer = OpenLoopPacer([app.submit_tx for app in apps], rate)
+    pacer.start()
+    try:
+        while time.monotonic() < pacer.t0 + warmup_s:
+            alive()
+            time.sleep(0.1)
+        start = last_blocks()
+        t0 = time.monotonic()
+        while True:
+            alive()
+            now = last_blocks()
+            reached = blocks is not None and all(
+                n >= s + blocks for n, s in zip(now, start))
+            if reached or time.monotonic() - t0 >= window_s:
+                break
+            time.sleep(0.25)
+        t1 = time.monotonic()
+    finally:
+        pacer.stop()
+    t_stop = time.monotonic()
+    rec = {"arm": label, "window_s": t1 - t0, "start_blocks": start,
+           "end_blocks": now, "window_reached": reached}
+    rec.update(pacer.counts())
+    accepted = [tx for per in pacer.accepted for tx in per]
+    shed = [tx for per in pacer.shed for tx in per]
+    want = set(accepted)
+    while True:
+        alive()
+        if all(want <= set(app.state.committed_txs) for app in apps):
+            break
+        if time.monotonic() - t_stop > drain_s:
+            break
+        time.sleep(0.25)
+    rec["drain_s"] = time.monotonic() - t_stop
+    rec["exactly_once"] = exactly_once(
+        accepted, shed, [list(app.state.committed_txs) for app in apps])
+    # inside the window: blocks and transactions each app committed, and
+    # each transaction's seconds from its stamp to its commit at the app
+    # it was submitted to
+    lat, in_window = [], []
+    for k, c in enumerate(commits):
+        mine = [(t, bi, txs) for t, bi, txs in list(c.blocks)
+                if t0 <= t <= t1]
+        in_window.append([len(mine), sum(len(txs) for _, _, txs in mine)])
+        for t, _, txs in mine:
+            for tx in txs:
+                stamp, serial = struct.unpack(">dQ", tx[:16])
+                if serial % len(apps) == k:
+                    lat.append(t - stamp)
+    rec["window_by_app"] = in_window
+    rec["tx_per_s"] = min(n for _, n in in_window) / rec["window_s"]
+    rec["p50_ms"] = 1e3 * _pct(lat, 0.5) if lat else None
+    rec["p95_ms"] = 1e3 * _pct(lat, 0.95) if lat else None
+    rec["latency_samples"] = len(lat)
+    common = min(last_blocks())
+    for bi in range(common + 1):
+        if len(set(body_hashes(bi))) != 1:
+            raise AssertionError(f"[firehose/{label}] block {bi} differs "
+                                 "across nodes")
+    rec["common_block"] = common
+    if blocks is not None and not reached:
+        raise AssertionError(f"[firehose/{label}] not every node committed "
+                             f"{blocks} blocks in {window_s} s: from {start} "
+                             f"to {now}")
+    if rec["other"]:
+        raise AssertionError(f"[firehose/{label}] {len(rec['other'])} "
+                             "submissions neither admitted nor shed, first "
+                             f"{rec['other'][:5]}")
+    if not exactly_once_held(rec["exactly_once"]):
+        raise AssertionError(f"[firehose/{label}] not exactly once after "
+                             f"{rec['drain_s']:.1f} s of drain: "
+                             f"{rec['exactly_once']}")
+    return rec
+
+
+def firehose_node(argv) -> int:
+    """One node of phase 16: the port's command line (``cli.main.main``)
+    with ``argv``, the node ``python -m babble_tpu_torch run`` starts, with
+    the harness's two additions. Each ``Core._batch_prevalidate`` call is
+    timed with its signatures (one real batch kept for each count). Once
+    the node has stopped (SIGTERM) and its calls in flight have returned,
+    it writes FH_RECORD into the node's datadir: K3's launches, its one
+    warm-up launch in ``Node.init`` apart; K1's launches beside the sweeps
+    they must equal (the batcher's, or the node's own without it); the
+    core's batch verifications and single re-checks; the offload's sweeps,
+    small windows and fallbacks; and the timings."""
+    import os
+    import threading
+
+    import torch
+
+    from babble_tpu_torch.cli.main import main as cli_main
+    from babble_tpu_torch.crypto.batch import collect_signature_items
+    from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
+    from babble_tpu_torch.node.core import Core
+    from babble_tpu_torch.node.node import Node
+    from babble_tpu_torch.ops import kernels
+
+    datadir = argv[argv.index("--datadir") + 1]
+    nodes = []  # (node, K3 launches once it was initialised)
+    calls, batches, busy = [], {}, [0]
+    lock = threading.Lock()
+    prevalidate, init = Core._batch_prevalidate, Node.init
+
+    def timed(self, decoded):
+        n_items = len(decoded) + sum(len(ev.body.internal_transactions)
+                                     for ev in decoded)
+        with lock:
+            busy[0] += 1
+        try:
+            t0 = time.perf_counter()
+            prevalidate(self, decoded)
+            seconds = time.perf_counter() - t0
+            with lock:
+                calls.append((seconds, n_items))
+                keep = n_items not in batches
+                batches.setdefault(n_items, [])
+            if keep:
+                batches[n_items] += [[list(pub), h.hex(), r, s]
+                                     for pub, h, r, s
+                                     in collect_signature_items(decoded)[0]]
+        finally:
+            with lock:
+                busy[0] -= 1
+
+    def init_counted(self):
+        init(self)
+        nodes.append((self, kernels.launch_counts()["ecdsa_shamir"]))
+
+    Core._batch_prevalidate = timed
+    Node.init = init_counted
+    rc = cli_main(argv)
+    node, warmup = nodes[0]
+    deadline = time.monotonic() + FH_STOP_S
+    while True:
+        with node.core_lock, lock:  # a sync in flight finishes first
+            if not busy[0]:
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError("[firehose] a batch verification never "
+                                 "returned")
+        time.sleep(0.05)
+    accel = node.core.hg.accel
+    batcher = SweepBatcher.instance()
+    while not batcher.idle():
+        if time.monotonic() > deadline:
+            raise AssertionError("[firehose] the sweep batcher never went "
+                                 "idle")
+        time.sleep(0.05)
+    if accel.device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if accel.batcher:
+        b = batcher.stats()
+        k1_want = b["batch_batches"] + b["batch_singles"]
+    else:
+        k1_want = accel.sweeps + accel.stale_drops + accel.busy()
+    rec = {
+        "k3_warmup": warmup,
+        "k3_launches": counts["ecdsa_shamir"] - warmup,
+        "k1_launches": counts["member_ss_counts"], "k1_want": k1_want,
+        "batcher": accel.batcher,
+        "batch_verifies": node.core.ingest_batch_verifies,
+        "fallback_singles": node.core.ingest_fallback_singles,
+        "sweeps": accel.sweeps, "small_windows": accel.small_windows,
+        "fallbacks": accel.fallbacks,
+        "sweep_shapes": [[list(k), v]
+                         for k, v in batcher.sweep_shapes.items()],
+        "calls": calls, "batches": batches,
+    }
+    with open(os.path.join(datadir, FH_RECORD), "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def firehose_arm(label: str, device_verify: bool) -> dict:
+    """One arm of phase 16: FH_NODES ``firehose_node`` processes (each
+    ``python -m babble_tpu_torch run --accelerator`` with its own datadir,
+    key, peers.json, service, socket proxy and a ``DummySocketClient`` in
+    this process as its app; phase 9's heartbeats; the offload, the sweep
+    batcher and the mempool at their defaults, no ``BABBLE_ACCEL_*``
+    variable), with ``BABBLE_DEVICE_VERIFY=1`` or without it, driven by
+    ``firehose_run``. Every process must reach Babbling and none may exit
+    early; after SIGTERM each must exit 0 having written its record: no
+    offload fallback, K1's launches equal to its sweeps, no single
+    re-check, and K3's launches after start-up equal to its batch
+    verifications (more than 0, one warm-up launch apart) with device
+    verification, none without."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+
+    from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
+    from babble_tpu_torch.crypto.keys import generate_key
+    from babble_tpu_torch.dummy.socket_client import DummySocketClient
+    from babble_tpu_torch.hashgraph.block import BlockBody
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_firehose_")
+    n = FH_NODES
+    ports = free_ports(4 * n)
+    gossip, service, proxy, client = (ports[i * n:(i + 1) * n]
+                                      for i in range(4))
+    keys = [generate_key() for _ in range(n)]
+    peers = [{"NetAddr": f"127.0.0.1:{gossip[i]}",
+              "PubKeyHex": k.public_key.hex(), "Moniker": f"f{i}"}
+             for i, k in enumerate(keys)]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BABBLE_ACCEL_")
+           and k != "BABBLE_DEVICE_VERIFY"}
+    if device_verify:
+        env["BABBLE_DEVICE_VERIFY"] = "1"
+    procs, apps, errs, dirs = [], [], [], []
+
+    def check_alive() -> None:
+        for i, p in enumerate(procs):
+            if p.poll() is not None:
+                errs[i].flush()
+                with open(errs[i].name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"[firehose/{label}] node {i} exited "
+                                     f"early with {p.returncode}:\n{tail}")
+
+    def stats(i: int) -> dict:
+        return json.loads(http_get(f"http://127.0.0.1:{service[i]}/stats",
+                                   timeout=10))
+
+    def last_blocks() -> list:
+        return [int(stats(i)["last_block_index"]) for i in range(n)]
+
+    def body_hashes(bi: int) -> list:
+        return [BlockBody.from_dict(json.loads(http_get(
+            f"http://127.0.0.1:{service[i]}/block/{bi}"))["Body"]).hash()
+            for i in range(n)]
+
+    try:
+        t_start = time.perf_counter()
+        for i, k in enumerate(keys):
+            dd = os.path.join(tmp, f"f{i}")
+            os.makedirs(dd)
+            dirs.append(dd)
+            SimpleKeyfile(os.path.join(dd, "priv_key")).write_key(k)
+            for fn in ("peers.json", "peers.genesis.json"):
+                with open(os.path.join(dd, fn), "w") as f:
+                    json.dump(peers, f)
+            errs.append(open(os.path.join(tmp, f"f{i}.err"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.firehose_node(sys.argv[1:]))",
+                 "run", "--accelerator", "--datadir", dd,
+                 "--listen", f"127.0.0.1:{gossip[i]}",
+                 "--service-listen", f"127.0.0.1:{service[i]}",
+                 "--proxy-listen", f"127.0.0.1:{proxy[i]}",
+                 "--client-connect", f"127.0.0.1:{client[i]}",
+                 "--heartbeat", str(HEARTBEAT_S),
+                 "--slow-heartbeat", str(SLOW_HEARTBEAT_S),
+                 "--moniker", f"f{i}", "--log", "error"],
+                stdout=subprocess.DEVNULL, stderr=errs[i], cwd=here,
+                env=env))
+            apps.append(DummySocketClient(f"127.0.0.1:{client[i]}",
+                                          f"127.0.0.1:{proxy[i]}"))
+        deadline = time.monotonic() + FH_START_S
+        up = set()
+        while len(up) < n:
+            check_alive()
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[firehose/{label}] only {len(up)}/{n}"
+                                     " nodes came up")
+            for i in set(range(n)) - up:
+                try:
+                    if stats(i).get("state") == "Babbling":
+                        up.add(i)
+                except OSError:
+                    pass
+            time.sleep(0.5)
+        up_s = time.perf_counter() - t_start
+        rec = firehose_run(label, apps, last_blocks, body_hashes,
+                           check_alive)
+        rec["up_s"] = up_s
+        check_alive()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        stopped = True
+        for p in procs:
+            try:
+                p.wait(timeout=FH_STOP_S)
+            except subprocess.TimeoutExpired:
+                stopped = False
+                p.kill()
+                p.wait(timeout=30)
+        for app in apps:
+            app.close()
+        for f in errs:
+            f.close()
+        ends = []  # per process: exit code, record, standard error's tail
+        for i, (p, dd) in enumerate(zip(procs, dirs)):
+            with open(os.path.join(tmp, f"f{i}.err")) as f:
+                tail = f.read()[-3000:]
+            path = os.path.join(dd, FH_RECORD)
+            record = None
+            if os.path.exists(path):
+                with open(path) as f:
+                    record = json.load(f)
+            ends.append((p.returncode, record, tail))
+        shutil.rmtree(tmp, ignore_errors=True)
+    nodes = []
+    for i, (code, r, tail) in enumerate(ends):
+        if not stopped or code != 0 or r is None:
+            raise AssertionError(f"[firehose/{label}] node {i} exit {code} "
+                                 f"after SIGTERM, record written "
+                                 f"{r is not None}:\n{tail}")
+        nodes.append(r)
+    for i, r in enumerate(nodes):
+        want_warmup = 1 if device_verify else 0
+        if (r["fallbacks"] or r["fallback_singles"]
+                or r["k1_launches"] != r["k1_want"]
+                or r["k3_warmup"] != want_warmup
+                or (device_verify
+                    and not 0 < r["k3_launches"] == r["batch_verifies"])
+                or (not device_verify and r["k3_launches"])):
+            raise AssertionError(
+                f"[firehose/{label}] node {i}: offload fallbacks "
+                f"{r['fallbacks']}, single re-checks "
+                f"{r['fallback_singles']}, K1 launches {r['k1_launches']} "
+                f"(want {r['k1_want']}), K3 warm-up {r['k3_warmup']} (want "
+                f"{want_warmup}), K3 launches {r['k3_launches']}, batch "
+                f"verifications {r['batch_verifies']}")
+        secs = [1e3 * t for t, _ in r["calls"]]
+        r["verify_ms"] = ([statistics.median(secs), _pct(secs, 0.95)]
+                          if secs else [None, None])
+        r["by_b"] = Counter(b for _, b in r["calls"])
+    rec["nodes"] = nodes
+    return rec
+
+
+def log_firehose(rec: dict, name_power: str) -> None:
+    eo = rec["exactly_once"]
+    log(f"[firehose/{rec['arm']}] {FH_NODES} processes up in "
+        f"{rec['up_s']:.1f} s (set-up); offered {rec['offered']}, admitted "
+        f"{rec['admitted']}, shed {rec['shed']}, committed per app "
+        f"{[r['committed'] for r in eo]} (each holds every admitted "
+        f"transaction once, nothing shed; drained in {rec['drain_s']:.1f} s);"
+        f" sender lag p50/p95/max ms {[round(x, 1) for x in rec['lag_ms']]}")
+    log(f"[firehose/{rec['arm']}] window {rec['window_s']:.2f} s, blocks "
+        f"{rec['start_blocks']} -> {rec['end_blocks']} per node (blocks, "
+        f"transactions committed in it per app {rec['window_by_app']}): "
+        f"{rec['tx_per_s']:.1f} tx/s committed, submit-to-commit p50 "
+        f"{rec['p50_ms']} ms, p95 {rec['p95_ms']} ms "
+        f"({rec['latency_samples']} samples); identical bodies to block "
+        f"{rec['common_block']}")
+    for i, r in enumerate(rec["nodes"]):
+        ms = r["verify_ms"]
+        log(f"[firehose/{rec['arm']}] node {i}: batch verification "
+            f"{r['batch_verifies']} calls, median / p95 "
+            + (f"{ms[0]:.3f} / {ms[1]:.3f} ms" if ms[0] is not None
+               else "n/a")
+            + f"; signatures a call {dict(sorted(r['by_b'].items()))}; K3 "
+            f"launches {r['k3_launches']} (+{r['k3_warmup']} warm-up), "
+            f"single re-checks 0; sweeps {r['sweeps']}, small windows "
+            f"{r['small_windows']}, K1 launches {r['k1_launches']} = "
+            f"{'the batcher' if r['batcher'] else 'its own'} sweeps, "
+            "fallbacks 0")
+    log(f"[firehose/{rec['arm']}] {name_power or 'nvidia-smi: not available'}")
+
+
+def firehose_phase(name_power: str, seed: int) -> list:
+    """Phase 16: its arms one after the other (``firehose_arm``), then, with
+    the card to itself, K3 against its plain version and timed on a real
+    batch of (a)'s most frequent B, and K1 at the shape the processes'
+    sweeps took most often, if they swept. Returns the rows of the kernels
+    line."""
+    t0 = time.perf_counter()
+    recs = {}
+    for arm, (label, device_verify) in FH_ARMS.items():
+        recs[arm] = firehose_arm(label, device_verify)
+        log_firehose(recs[arm], name_power)
+    k3 = recs["a"]["nodes"]
+    by_b = sum((r["by_b"] for r in k3), Counter())
+    most = max(by_b, key=lambda b: (by_b[b], -b))
+    batch = next(r["batches"][str(most)] for r in k3
+                 if str(most) in r["batches"])
+    items = [(tuple(pub), bytes.fromhex(h), r, s) for pub, h, r, s in batch]
+    rec = k3_against_plain(items, sm_clock_mhz())
+    launches = sum(r["k3_launches"] for r in k3)
+    log(f"[firehose] K3 at B {most} ((a)'s most frequent, {by_b[most]} of "
+        f"{launches} launches): = plain on the card; {rec['ms']:.4f} ms at G "
+        f"{rec['group']}, plain {rec['plain_ms']:.1f} ms, bound "
+        f"{rec['bound'][0]:.4g} ms ({rec['bound'][1]}, "
+        f"{rec['bound'][0] / rec['ms']:.2%} of it)")
+    rows = [k3_row("phase 16 firehose, most frequent B", rec, by_b[most],
+                   launches)]
+    shapes = Counter()
+    for r in (r for arm in recs.values() for r in arm["nodes"]):
+        for (B, W, P, S), n in r["sweep_shapes"]:
+            shapes[(W, P, S) if B == 1 else (B, W, P, S)] += n
+    k1 = {arm: sum(r["k1_launches"] for r in rec_["nodes"])
+          for arm, rec_ in recs.items()}
+    if shapes:
+        rows.append(k1_row("phase 16 firehose", shapes, k1, "a", seed=seed))
+    else:
+        log(f"[firehose] no sweep in either arm (K1 launches {k1}): every "
+            "flush stayed below the offload's min_window")
+    log(f"[firehose] phase 16: {time.perf_counter() - t0:.1f} s; "
+        f"{name_power or 'nvidia-smi: not available'}")
+    return rows
+
+
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
 _AB_CHILD = """
@@ -6127,7 +6727,7 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
-    ap.add_argument("--phase", type=int, choices=[14, 15],
+    ap.add_argument("--phase", type=int, choices=[14, 15, 16],
                     help="run phase 1 (the device and the build), then only "
                     "this phase")
     args = ap.parse_args(argv)
@@ -6175,6 +6775,13 @@ def main(argv=None) -> int:
         log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
         finish(byzantine_phase(dev["name_power"], Byzantine(args.seed + 107),
                                args.seed + 108), dev, t_start)
+        return 0
+    if args.phase == 16:
+        t0 = time.perf_counter()
+        so = kernels.build()
+        log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
+        finish(firehose_phase(dev["name_power"], args.seed + 109), dev,
+               t_start)
         return 0
     # phase 4's stream; its host oracle replays in a child process from
     # here on, beside the card work of phases 1-3 and 5-7
@@ -6377,6 +6984,12 @@ def main(argv=None) -> int:
         live.stop()
         for arms in byz:
             arms.stop()
+
+    # Phase 16: BASELINE config 2, its arms one after the other, each four
+    # node processes (K3 and K1 counted in each); it starts once phase 15's
+    # arms have ended, so that no other node cluster shares the host's
+    # cores with it and its tx/s and latency belong to the configuration
+    rows += firehose_phase(dev["name_power"], args.seed + 109)
     finish(rows, dev, t_start)
     return 0
 
