@@ -23,6 +23,7 @@ import argparse
 import os
 import signal
 import sys
+import threading
 
 from ..config.config import Config, default_data_dir
 from ..crypto.keyfile import SimpleKeyfile
@@ -174,12 +175,38 @@ def cmd_run(args: argparse.Namespace) -> int:
     engine = Babble(conf, proxy=proxy)
     engine.init()
 
+    # The engine runs on a thread of its own; the handler only records the
+    # signal, and the main thread shuts the engine down. A handler runs on
+    # the main thread between two bytecodes, and shutdown takes locks that
+    # the code it interrupts may hold (the babble loop holds the node's
+    # routine lock while it starts a gossip thread), so it must not run
+    # shutdown, nor babble on the thread that handles signals. An error
+    # that ends the engine (a service address already taken, a fault in
+    # the babble loop) shuts it down and is raised here, as if it had
+    # been raised on this thread.
+    stop, failed = [], []
+
     def _stop(signum, frame):
-        engine.shutdown()
+        stop.append(signum)
+
+    def _run():
+        try:
+            engine.run()
+        except BaseException as err:
+            failed.append(err)
 
     signal.signal(signal.SIGINT, _stop)
     signal.signal(signal.SIGTERM, _stop)
-    engine.run()
+    runner = threading.Thread(target=_run, daemon=True, name="engine-run")
+    runner.start()
+    while not stop and runner.is_alive():
+        runner.join(timeout=0.1)
+    if stop or failed:
+        try:
+            engine.shutdown()
+        finally:
+            if failed:
+                raise failed[0]
     return 0
 
 

@@ -124,11 +124,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shards and ring steps of (4096, 64) at 2, 4 and 8 shards, a shard of
    (4096, 16), and the sharded pipeline's batched shards) against their
    plain versions on random and edge coordinates, with times, bounds and
-   shares; phases 3 and 4's
-   streams through TensorConsensus(mesh=...) at N = 1 and 4 (resident, no
-   batcher, min_window 0; the 16-validator one in syncs of 32, beside a
-   single-device arm, so that the delta path runs), equal to those phases'
-   oracles, with no mesh fallback, delta sweeps, K1 launches = N x sweeps,
+   shares; phase 3's stream through TensorConsensus(mesh=...) at N = 1
+   and 4 and phase 4's at N = 4 (resident, no batcher, min_window 0; the
+   16-validator one in syncs of 32, beside a single-device arm, so that
+   the delta path runs; phase 4's own min_window 0 arm is the 64-validator
+   single device), equal to those phases' oracles, with no mesh fallback, delta sweeps, K1 launches = N x sweeps,
    the pad rows and the dispatch and device ms per sweep against the
    single device; the batcher's coprocessor lane (two validators on one
    4-shard mesh, one wave serving both); and the collectives on 2, 4 and 8
@@ -162,7 +162,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    stream's in a child process), with K1's launches equal to the device
    sweeps; (b) 16 port Nodes over loopback TCP at phase 8's settings, in a
    process of their own started before phase 11 and running beside phases
-   11-13 and (a), with the offload at its card defaults and every window on
+   11-13, (a) and phase 15, with the offload at its card defaults and every window on
    the card, under
    closed-loop load, through a join, a polite leave, a join, a leave and a
    join by fast-sync, one requested every 5 s once the last committed:
@@ -179,8 +179,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    last, once (b) has ended, K1 against its plain version, with time,
    bound and share, at every shape of (a) and (b) with two slots or more;
 15. the Byzantine fault model (BASELINE.json config 5), two arms at
-   once, each in a fresh process, started once phase 14's live cluster
-   has ended and run beside its replays: 16 validators over loopback TCP, 11 of
+   once, each in a fresh process, started with phase 14's replays and run
+   beside them and the live cluster's last changes: 16 validators over loopback TCP, 11 of
    them port Nodes with the offload at its card defaults and 5
    ``adversary.ByzantineNode``s (three ``wrong_key`` flooders, one
    ``oversize`` pusher, one ``equivocate``, whose fork the harness reveals
@@ -209,11 +209,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    babble_tpu_torch run --accelerator`` processes (each through
    ``firehose_node``, which times ``Core._batch_prevalidate`` and writes
    the kernels' launch counts at SIGTERM), each with its own datadir,
-   service and socket proxy, and a ``DummySocketClient`` in this process
-   as its app, phase 9's heartbeats, the offload, the sweep batcher and
-   the mempool at their defaults, under an open-loop load of 1000 tx/s
-   over the four apps (``OpenLoopPacer``: transaction i due at t0 + i /
-   1000, never skipped, a ``full`` or ``throttled`` verdict shed): 5 s of
+   service and socket proxy, and a ``DummySocketClient`` as its app (the
+   four in one sender process, ``SenderLoad``), phase 9's heartbeats, the
+   offload, the sweep batcher and the mempool at their defaults, under an
+   open-loop load of 1000 tx/s over the four apps (``OpenLoopPacer``:
+   transaction i due at t0 + i / 1000 and stamped with that time, one
+   submission in flight an app, never skipped, a ``full`` or
+   ``throttled`` verdict shed): 5 s of
    warm-up, a window until every node has committed ten blocks past the
    one it held at its start (at most 90 s), then a drain of at most 60 s;
    in two arms one after the other, (a) ``BABBLE_DEVICE_VERIFY=1``, so K3
@@ -225,18 +227,55 @@ Phases, each of which fails the run (non-zero exit) on any error:
    sweeps, and K3's launches after start-up equal to each process's batch
    verifications (more than 0) in (a), none in (b); offered, admitted,
    shed and committed transactions, committed tx/s over the window,
-   submit-to-commit p50/p95, each process's batch verification ms and
+   due-to-commit and send-to-commit p50/p95, each process's batch verification ms and
    signatures a call, sweeps and small windows. Then K3 against its plain
    version and timed on a real batch of (a)'s most frequent B, and K1 at
-   the processes' most frequent sweep shape if they swept.
+   the processes' most frequent sweep shape if they swept;
+17. BASELINE.json config 3 as the JAX package runs it (bench.py's
+   ``bench_subprocess_cluster(transport="async", accelerator=True)``):
+   sixteen ``python -m babble_tpu_torch run --accelerator --transport
+   async`` processes (each through ``firehose_node``), with phase 8's
+   suspend limit and one ``BABBLE_ACCEL_SLOT_DIR`` for all, the offload,
+   the sweep batcher, the mempool and the host verifier at their
+   defaults, each with its own datadir, service and socket proxy and a
+   ``DummySocketClient`` as its app, the apps in four sender processes
+   (``SenderLoad``) under an open-loop schedule of 10,000 tx/s over the
+   sixteen (625 a second an app; each app has one submission in flight,
+   so a sender whose node answers slower than its share falls behind, and
+   the load offered is then a closed loop of sixteen submissions in
+   flight, printed as the rate offered): 5 s of warm-up, a window until every node has
+   committed ten blocks past its own at the window's start (at most 60
+   s), a drain of at most 60 s, then all sixteen stopped under one shared
+   deadline. Checks: every process Babbling and none gone, identical
+   bodies at every index all committed, every app holding every admitted
+   transaction exactly once, no offload fallback, K1's launches equal to
+   each process's sweeps and above 0 in all, each process exiting 0 after
+   SIGTERM with its record; it prints the offered rate beside the
+   schedule's, admitted, shed, the sender's lag, committed tx/s,
+   due-to-commit (the senders' backlog included) and send-to-commit
+   p50/p95, the window's blocks and, per process, sweeps,
+   small windows, the windows its flushes saw, K1 launches and the async
+   engine's pipeline counters from ``/stats``. Then K1 against its plain
+   version and timed at the processes' most frequent sweep shape.
+
+Every process the script starts, and every process those start, goes
+through ``spawn`` (``adopt`` for multiprocessing's children): it carries
+the run's token (CHIP_SMOKE_RUN) in its environment, leads a process
+group of its own and dies with the thread that started it; teardown
+signals whole groups under one shared deadline (``stop_all``). SIGTERM
+and SIGINT end the script through its ``finally`` blocks, and every run,
+failed or not, ends with ``reap``, which finds by the token any process
+of the run still alive, kills it, names it on a line of its own and fails
+a run that would otherwise pass.
 
 For each live path (the replays of phases 3 and 4, the node cluster of
 phase 8: its batched waves and its per-node sweeps, phase 12's mobile
 pair, phase 13's lock-checked cluster, and phase 14's replayed stream and
 live cluster at each slot count of two or more), K1 is also held
 against its plain version, and timed, at the shape that path gave it most
-often; K3 likewise at the batch size phase 10's cluster gave it most
-often, and at phase 15's and phase 16's. The line before the
+often (and phase 17's processes); K3 likewise at the batch size phase 10's
+cluster gave it most often, and at phase 15's and phase 16's. The line
+before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -259,7 +298,8 @@ each K2 kernel, and exits.
 
 runs phase 1 (the device and the build), then phase 14 alone, and ends
 with the kernels line (phase 14's rows) and the device line; ``--phase
-15`` and ``--phase 16`` likewise with phases 15 and 16.
+15``, ``--phase 16`` and ``--phase 17`` likewise with phases 15, 16 and
+17.
 """
 
 from __future__ import annotations
@@ -267,8 +307,11 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing
+import os
 import random
+import signal
 import statistics
+import subprocess
 import sys
 import time
 from collections import Counter
@@ -321,6 +364,268 @@ K2_ROWS = [(1, 4096, 16), (1, 4096, 64), (1, 512, 16), (8, 512, 16)]
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# -- process lifetime --------------------------------------------------------
+#
+# Every process this script starts, and every process those start, goes
+# through ``spawn`` (or, for multiprocessing's children, ``adopt``): it
+# carries the run's token in its environment, leads a process group of its
+# own and dies with the thread that started it. Teardown signals whole
+# groups under one deadline (``stop_all``), and ``guarded`` ends every run,
+# failed or not, with ``reap``, which finds by the token whatever escaped,
+# kills it and fails a run that would otherwise pass.
+
+# the environment variable that carries the run's token to every descendant
+RUN_TOKEN = "CHIP_SMOKE_RUN"
+# how long ``reap`` waits for what it killed to be gone
+REAP_WAIT_S = 10.0
+# prctl(2): deliver a signal to this process when its parent thread exits
+_PR_SET_PDEATHSIG = 1
+_LIBC = None
+
+
+def _prctl():
+    global _LIBC
+    if _LIBC is None:
+        import ctypes
+
+        _LIBC = ctypes.CDLL(None, use_errno=True)
+    return _LIBC.prctl
+
+
+def adopt(parent: int, own_group: bool = True) -> None:
+    """In a child, first thing: SIGKILL when the thread that started it
+    exits (``PR_SET_PDEATHSIG``), at once if ``parent`` is already gone,
+    and with ``own_group`` a process group of its own. A multiprocessing
+    child (``OracleProcess``, the executor pools) calls it itself;
+    ``spawn``'s children run ``_ADOPT_EXEC`` before their command."""
+    if own_group:
+        os.setpgid(0, 0)
+    _prctl()(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0)
+    if os.getppid() != parent:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+# what ``spawn``'s child runs first, in a fresh interpreter (``python -S -c
+# _ADOPT_EXEC parent cmd...``): ``adopt``'s death signal and parent check,
+# then ``exec`` of the command, which keeps the pid, the group and the
+# death signal. No Python runs between fork and exec in the spawning
+# process, which has many threads by then.
+_ADOPT_EXEC = (
+    "import ctypes, os, signal, sys\n"
+    f"ctypes.CDLL(None).prctl({_PR_SET_PDEATHSIG}, signal.SIGKILL, 0, 0, 0)\n"
+    "if os.getppid() != int(sys.argv[1]):\n"
+    "    os.kill(os.getpid(), signal.SIGKILL)\n"
+    "os.execvp(sys.argv[2], sys.argv[2:])\n")
+
+
+def spawn(cmd, **popen_kw):
+    """``subprocess.Popen(cmd, **popen_kw)`` for a process of this run: it
+    inherits ``os.environ`` (with ``env=``, a copy of it, which must hold
+    the run's token), leads a process group of its own, so that
+    ``stop_all`` reaches its descendants, and dies with the thread that
+    called ``spawn`` (keep that thread alive as long as the child): it
+    starts as ``_ADOPT_EXEC``, which execs ``cmd``. A command that cannot
+    be found raises ``FileNotFoundError`` here, as ``Popen`` would."""
+    import shutil
+
+    env = popen_kw.get("env")
+    if env is not None and env.get(RUN_TOKEN) != os.environ.get(RUN_TOKEN):
+        raise ValueError("spawn: env= must be a copy of os.environ")
+    cmd = list(cmd)
+    path = (env or os.environ).get("PATH")
+    exe = (os.path.join(popen_kw.get("cwd") or "", cmd[0])
+           if os.sep in cmd[0] else shutil.which(cmd[0], path=path))
+    if not exe or not os.access(exe, os.X_OK):
+        raise FileNotFoundError(f"spawn: no command {cmd[0]!r}")
+    return subprocess.Popen(
+        [sys.executable, "-S", "-c", _ADOPT_EXEC, str(os.getpid()), *cmd],
+        process_group=0, **popen_kw)
+
+
+def run_cmd(cmd, timeout: float, **popen_kw):
+    """``subprocess.run(cmd, timeout=timeout, capture_output=True,
+    text=True)`` through ``spawn``; on the timeout the child's group is
+    killed before ``TimeoutExpired`` is raised."""
+    proc = spawn(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                 text=True, **popen_kw)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        stop_all([proc], grace_s=0.0)
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _signal_group(proc, sig) -> None:
+    try:
+        os.killpg(proc.pid, sig)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def stop_all(procs, grace_s: float) -> list:
+    """Stops ``spawn``'s processes ``procs`` together: SIGTERM to every
+    group at once (none with ``grace_s`` 0), one shared deadline of
+    ``grace_s`` for them all, then SIGKILL to every group, which takes the
+    stragglers and whatever descendants stayed in a group whose leader
+    exited, then ``wait``. Returns, per process, the seconds it took to
+    exit of itself (to 0.05 s), or None if it was killed at the
+    deadline."""
+    t0 = time.monotonic()
+    if grace_s > 0:
+        for p in procs:
+            _signal_group(p, signal.SIGTERM)
+    exits = [None] * len(procs)
+    while True:
+        for i, p in enumerate(procs):
+            if exits[i] is None and p.poll() is not None:
+                exits[i] = time.monotonic() - t0
+        if None not in exits or time.monotonic() - t0 >= grace_s:
+            break
+        time.sleep(0.05)
+    for p in procs:
+        _signal_group(p, signal.SIGKILL)
+    for p in procs:
+        p.wait()
+    return exits
+
+
+def token_processes(token: str) -> list:
+    """(pid, command line) of every process but this one whose environment
+    carries ``token`` as RUN_TOKEN, from ``/proc/*/environ``; a file that
+    cannot be read (another user's, or a process gone meanwhile) is
+    skipped, and a zombie's is empty."""
+    want = f"{RUN_TOKEN}={token}".encode()
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == me:
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if want not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        out.append((int(name), cmd.strip()))
+    return out
+
+
+def _kill_and_wait(found, deadline: float) -> None:
+    for pid, _ in found:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    left = {pid for pid, _ in found}
+    while left and time.monotonic() < deadline:
+        for pid in list(left):
+            try:  # our own children: collect the zombie
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+            try:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    gone = not f.read()
+            except OSError:
+                gone = True
+            if gone:
+                left.discard(pid)
+        time.sleep(0.05)
+
+
+def _stop_resource_tracker(deadline: float) -> None:
+    """Ends multiprocessing's resource tracker, a helper this process starts
+    with its first spawned child and that runs until every holder of its
+    pipe has exited: the pipe is closed here and the tracker collected.
+    If it outlives ``deadline``, the last scan of ``reap`` finds it."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    fd, pid = getattr(tracker, "_fd", None), getattr(tracker, "_pid", None)
+    if pid is None:
+        return
+    if fd is not None:
+        os.close(fd)
+        tracker._fd = None
+    while time.monotonic() < deadline:
+        try:
+            if os.waitpid(pid, os.WNOHANG)[0]:
+                tracker._pid = None
+                return
+        except ChildProcessError:
+            tracker._pid = None
+            return
+        time.sleep(0.05)
+
+
+def reap(token: str = None) -> list:
+    """The check at the end of every run: every process but this one that
+    carries the run's token (``token_processes``) is SIGKILLed and waited
+    for, up to REAP_WAIT_S, and logged with its pid and command line. The
+    resource tracker of multiprocessing, if this run started it (a helper
+    of this process, not a straggler), is stopped in the way it expects
+    once what holds its pipe is gone. Returns the stragglers; reading
+    ``/proc`` and signalling this run's own processes is all it does."""
+    from multiprocessing import resource_tracker
+
+    token = token or os.environ.get(RUN_TOKEN)
+    if not token:
+        return []
+    deadline = time.monotonic() + REAP_WAIT_S
+    helper = getattr(resource_tracker._resource_tracker, "_pid", None)
+    found = token_processes(token)
+    ours = any(pid == helper for pid, _ in found)
+    found = [x for x in found if x[0] != helper]
+    _kill_and_wait(found, deadline)
+    if ours:
+        _stop_resource_tracker(deadline)
+    late = [x for x in token_processes(token)
+            if x[0] not in {pid for pid, _ in found}]
+    _kill_and_wait(late, time.monotonic() + REAP_WAIT_S)
+    found += late
+    for pid, cmd in found:
+        log(f"[reap] straggler pid {pid}, killed: {cmd[:300]}")
+    log(f"[reap] {len(found)} processes of this run outlived their "
+        "teardown" if found else "[reap] no process of this run is left")
+    return found
+
+
+def _exit_on_signal(signum, frame):
+    raise SystemExit(128 + signum)
+
+
+def guarded(body) -> int:
+    """Runs ``body()`` as one run of this script: a fresh token in
+    ``os.environ[RUN_TOKEN]``, SIGTERM and SIGINT raising ``SystemExit``
+    (so that every ``finally`` runs), and ``reap`` at the end, whatever
+    happened. ``body`` returns an exit code, or a callable that prints the
+    run's last lines: those are printed, and 0 returned, only if ``reap``
+    found nothing; a straggler fails the run."""
+    import uuid
+
+    os.environ[RUN_TOKEN] = uuid.uuid4().hex
+    before = {s: signal.signal(s, _exit_on_signal)
+              for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        out = body()
+    finally:
+        for s in before:  # a second signal must not cut the reap short
+            signal.signal(s, signal.SIG_IGN)
+        stragglers = reap()
+        for s, h in before.items():
+            signal.signal(s, h)
+    if stragglers:
+        log(f"chip_smoke: FAILED: {len(stragglers)} processes outlived "
+            "their teardown (pids "
+            f"{', '.join(str(pid) for pid, _ in stragglers)})")
+        return 1
+    if callable(out):
+        out()
+        return 0
+    return out
 
 
 # -- timing ----------------------------------------------------------------
@@ -726,7 +1031,8 @@ def oracle_summary(events, peers, peer_sets=()) -> dict:
             "rounds_received": [b.round_received() for b in blocks]}
 
 
-def _oracle_child(send, events, peers, peer_sets) -> None:
+def _oracle_child(parent, send, events, peers, peer_sets) -> None:
+    adopt(parent)
     try:
         send.send(("ok", oracle_summary(events, peers, peer_sets)))
     except BaseException:
@@ -735,7 +1041,8 @@ def _oracle_child(send, events, peers, peer_sets) -> None:
         send.send(("error", traceback.format_exc()))
 
 
-def _dag_oracle_child(send, seed) -> None:
+def _dag_oracle_child(parent, send, seed) -> None:
+    adopt(parent)
     try:
         from babble_tpu_torch.ops import dag
 
@@ -758,7 +1065,8 @@ class OracleProcess:
     """``oracle_summary`` in a child process, started at once, so that a
     long host oracle replays beside the card phases instead of before the
     replays it is held against. The child is spawned (the parent holds the
-    card) and touches no card; it is a daemon, ended with the script. With
+    card) and touches no card; it is a daemon, ``adopt``ed, so it ends with
+    the thread that made it, and ``stop`` kills it. With
     ``dag_seed`` it runs ``_dag_oracle_child`` instead: phase 6's
     64-validator stream, its oracle replay, the replay's snapshot and the
     oracle's decisions on it."""
@@ -769,6 +1077,7 @@ class OracleProcess:
         target, args = ((_oracle_child, (send, events, peers, peer_sets))
                         if dag_seed is None
                         else (_dag_oracle_child, (send, dag_seed)))
+        args = (os.getpid(), *args)
         self._proc = ctx.Process(target=target, daemon=True, args=args)
         self._proc.start()
         send.close()
@@ -787,8 +1096,8 @@ class OracleProcess:
 
     def stop(self) -> None:
         if self._proc.is_alive():
-            self._proc.terminate()
-            self._proc.join()
+            self._proc.kill()
+        self._proc.join()
 
 
 def _pct(xs, q):
@@ -1140,7 +1449,6 @@ def device_trace(fn) -> list:
     """(name, µs) of every device kernel, copy and fill of one ``fn()``
     call, from torch.profiler's exported trace, which keeps kernels that
     no PyTorch operation launched (K1 and K2 launch through ctypes)."""
-    import os
     import tempfile
 
     import torch
@@ -1291,15 +1599,10 @@ def profile_dag_fresh() -> None:
     """``profile_child`` in a fresh interpreter, waited for. In this
     process, minutes old, the profiler's trace of the same run lost device
     records, K2's among them, where a young process kept every one."""
-    import os
-    import subprocess
-
     here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c",
-         "import chip_smoke; chip_smoke.profile_child()"],
-        cwd=here, capture_output=True, text=True, timeout=600,
-    )
+    proc = run_cmd([sys.executable, "-c",
+                    "import chip_smoke; chip_smoke.profile_child()"],
+                   timeout=600, cwd=here)
     sys.stdout.write(proc.stdout)
     sys.stdout.flush()
     if proc.returncode != 0:
@@ -1432,11 +1735,14 @@ def tcp_cluster(n: int, accelerator: bool, join_timeout=None):
     return nodes, proxies, states
 
 
-def stamped_tx(i: int) -> bytes:
-    """A TX_BYTES transaction carrying its submit time and a serial."""
+def stamped_tx(i: int, due=None) -> bytes:
+    """A TX_BYTES transaction carrying its stamp, its serial ``i`` and its
+    send time (``time.monotonic()`` now): the stamp is the time it was due
+    at on an open-loop schedule (``due``), else its send time."""
     import struct
 
-    head = struct.pack(">dQ", time.monotonic(), i)
+    now = time.monotonic()
+    head = struct.pack(">dQd", now if due is None else due, i, now)
     return head + bytes(TX_BYTES - len(head))
 
 
@@ -1661,7 +1967,6 @@ def device_profile(seconds: float) -> dict:
     only starts and stops the tracing). Without CPU activities the trace
     stays small enough to stop and export while 16 node threads hold the
     GIL (a CPU and CUDA capture through the service timed out there)."""
-    import os
     import tempfile
 
     import torch
@@ -1695,7 +2000,6 @@ def cluster_arm(label: str, accelerator: bool, env: dict, n: int = NODES,
     sweep must have batched two windows or more); without it, the device
     sweeps the nodes launched: applied, dropped stale, and in flight when
     the nodes stopped."""
-    import os
     import threading
 
     import torch
@@ -2205,9 +2509,6 @@ def client_tier(tmp: str, peers_path: str, hubs, proxies, services,
     the gateway's final stats(), and every node still sweeping on the card
     with no fallback."""
     import base64
-    import os
-    import signal
-    import subprocess
     import urllib.error
 
     from babble_tpu_torch.client.proofs import txid_hex
@@ -2231,15 +2532,14 @@ def client_tier(tmp: str, peers_path: str, hubs, proxies, services,
     gw_listen, gw_sub, gw_http = (f"127.0.0.1:{p}" for p in free_ports(3))
     here = os.path.dirname(os.path.abspath(__file__))
     gw_err = open(os.path.join(tmp, "gateway.err"), "w")
-    # its own session: its spawned shard processes die with it on a failure
-    gw = subprocess.Popen(
+    # its own process group (spawn): its shard processes die with it
+    gw = spawn(
         [sys.executable, "-m", "babble_tpu_torch.client.gateway",
          "--forward", ",".join(proxies[:2]), "--upstream", hubs[2],
          "--peers", peers_path, "--listen", gw_listen,
          "--sub-listen", gw_sub, "--http", gw_http, "--shards", "4",
          "--processes"],
-        stdout=subprocess.PIPE, stderr=gw_err, text=True, cwd=here,
-        start_new_session=True)
+        stdout=subprocess.PIPE, stderr=gw_err, text=True, cwd=here)
     swarms, replica, rpcs = [], None, []
 
     def gw_alive() -> None:
@@ -2493,11 +2793,7 @@ def client_tier(tmp: str, peers_path: str, hubs, proxies, services,
             replica.close()
         for rpc in rpcs:
             rpc.close()
-        try:
-            os.killpg(gw.pid, signal.SIGKILL)
-        except ProcessLookupError:
-            pass
-        gw.wait(timeout=30)
+        stop_all([gw], grace_s=0.0)
         gw_err.close()
 
 
@@ -2516,9 +2812,7 @@ def cli_cluster() -> dict:
     files must exist; node 0's torch profile must hold CUDA kernel records.
     The children are killed at the end; one that exits early fails the
     phase."""
-    import os
     import shutil
-    import subprocess
     import tempfile
     import threading
 
@@ -2567,7 +2861,7 @@ def cli_cluster() -> dict:
                 with open(os.path.join(dd, fn), "w") as f:
                     json.dump(peers, f)
             errs.append(open(os.path.join(tmp, f"c{i}.err"), "w"))
-            procs.append(subprocess.Popen(
+            procs.append(spawn(
                 [sys.executable, "-m", "babble_tpu_torch", "run",
                  "--accelerator", "--datadir", dd,
                  "--listen", f"127.0.0.1:{gossip[i]}",
@@ -2699,10 +2993,7 @@ def cli_cluster() -> dict:
             [f"127.0.0.1:{p}" for p in service], stats, check_alive)
         return rec
     finally:
-        for p in procs:
-            p.kill()
-        for p in procs:
-            p.wait(timeout=30)
+        stop_all(procs, grace_s=0.0)
         for c in clients:
             c.close()
         for f in errs:
@@ -2957,9 +3248,13 @@ def oracle_verdicts(items, workers: int = 8):
     from concurrent.futures import ProcessPoolExecutor
 
     chunks = [items[i:i + 64] for i in range(0, len(items), 64)]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+    pool = ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=adopt, initargs=(os.getpid(),))
+    try:
         return [v for part in pool.map(_oracle_chunk, chunks) for v in part]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _k3_ladder_counts(inputs):
@@ -3014,12 +3309,12 @@ def k3_own_ms(inputs, group: int, clock_mhz: float) -> float:
 
 def sm_clock_mhz() -> float:
     """The SM's maximum clock as nvidia-smi reports it (clocks.max.sm)."""
-    import subprocess
-
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"], check=True,
-                         capture_output=True, text=True, timeout=30).stdout
-    return float(out.splitlines()[0])
+    proc = run_cmd(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                    "--format=csv,noheader,nounits"], timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvidia-smi exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return float(proc.stdout.splitlines()[0])
 
 
 def k3_bound_ms(inputs, clock_mhz: float):
@@ -3155,7 +3450,6 @@ def verify_cluster_arm(label: str, device_verify: bool) -> dict:
     with device verification, K3 launches (counted from 0 once the nodes
     are up) equal the cores' batch verifies, and without it K3 never
     launches. Each core's batch verification is timed per call."""
-    import os
     import threading
 
     import torch
@@ -3297,14 +3591,18 @@ def verify_ahead(seed: int) -> dict:
              + ladder_edge_items())
     many = items * (VERIFY_TIMED_B[-1] // len(items))
     items_s = time.perf_counter() - t0
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=2, mp_context=ctx) as pool:
+    pool = ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=adopt, initargs=(os.getpid(),))
+    try:
         t1 = time.perf_counter()
         parts = [pool.submit(_oracle_chunk, items[i:i + 64])
                  for i in range(0, len(items), 64)]
         plain = {B: plain_on_card(many[:B]) for B in VERIFY_TIMED_B}
         oracle = [v for part in parts for v in part.result()]
         oracle_s = time.perf_counter() - t1
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     log(f"[verify] beside phase 8: {len(items)} signatures from "
         f"{VERIFY_KEYS} keys in {items_s:.2f} s (set-up), the plain ladder "
         "on the card at B " + ", ".join(
@@ -3384,7 +3682,6 @@ def ledger_gate(arms, k3_rows, name_power: str) -> None:
     results, and gated: the gate passes on the five copies, and fails on
     ``inject_regression(..., 2.0)`` of them, through ``gate`` and through
     the command line (``--inject-regression``)."""
-    import os
     import shutil
     import tempfile
 
@@ -3850,8 +4147,10 @@ def mesh_phase(seed, streams, single_64, batch_arrays, batch_sm) -> list:
     (ev16, peers16, _ps16, want16), (ev64, peers64, ps64, want64) = streams
     arms16 = [mesh_replay("16", ev16, peers16, want16, n, sync=MESH_SYNC_16)
               for n in (0, 1, MESH_N)]
-    arms64 = [mesh_replay("64", ev64, peers64, want64, n, peer_sets=ps64)
-              for n in (1, MESH_N)]
+    # phase 4's min_window 0 arm is this stream on one device; N 1 is the
+    # 16-validator stream's alone (a cut: at 64 validators it took 33-50 s)
+    arms64 = [mesh_replay("64", ev64, peers64, want64, MESH_N,
+                          peer_sets=ps64)]
     for label, single, arms in (("16", arms16[0], arms16[1:]),
                                 ("64", single_64, arms64)):
         log(f"[mesh {label}] ms per sweep, dispatch / kernel: single device "
@@ -3944,24 +4243,26 @@ def sass_counts(so: str) -> dict:
     -sass``; names demangled where ``cu++filt`` is there): the instructions
     of its compare loop, from its first predicated FADD to its last, by
     opcode with modifiers, and their total."""
-    import os
     import re
-    import subprocess
 
     cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    text = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
-                           so], capture_output=True, text=True,
-                          check=True).stdout
+    proc = run_cmd([os.path.join(cuda, "bin", "cuobjdump"), "-sass", so],
+                   timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cuobjdump exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    text = proc.stdout
     out = {}
     for part in text.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
         if "strongly_see_kernel" not in name:
             continue
         try:
-            name = subprocess.run([os.path.join(cuda, "bin", "cu++filt"),
-                                   name], capture_output=True, text=True,
-                                  check=True).stdout.strip()
-        except (OSError, subprocess.CalledProcessError):
+            proc = run_cmd([os.path.join(cuda, "bin", "cu++filt"), name],
+                           timeout=60)
+            if proc.returncode == 0:
+                name = proc.stdout.strip()
+        except OSError:
             pass
         ops = [re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?P[T0-9]\s+)?"
                         r"([A-Z][A-Z0-9_.]*)", line)
@@ -4043,7 +4344,6 @@ def mobile_child() -> None:
     and no fallback, and K1's launches (counted from 0 before the nodes
     start) equal to the device sweeps the nodes launched. Prints one
     ``MOBILE`` line of JSON for the parent."""
-    import os
     import shutil
     import tempfile
     import threading
@@ -4217,16 +4517,13 @@ def lint_runs() -> dict:
     each in a fresh interpreter (this machine has no JAX): every one must
     exit 0. Returns the files linted, the passes that fired in the
     self-proof and the instruments matched."""
-    import os
     import re
-    import subprocess
 
     here = os.path.dirname(os.path.abspath(__file__))
     out = {}
     for args in LINT_COMMANDS:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args], cwd=here,
-                              capture_output=True, text=True, timeout=120)
+        proc = run_cmd([sys.executable, "-m", *args], timeout=120, cwd=here)
         took = time.perf_counter() - t0
         if proc.returncode != 0:
             raise AssertionError(f"[lint] python -m {' '.join(args)}: exit "
@@ -5153,22 +5450,22 @@ class FreshChild:
     """``chip_smoke.<call>`` in a fresh interpreter with ``env`` added,
     started at once: its output (standard error merged in) passes through
     as it comes, but for the one line that starts with ``tag``, whose JSON
-    ``result()`` returns once the child has exited 0. The child is killed
-    after ``timeout`` seconds."""
+    ``result()`` returns once the child has exited 0. The child's process
+    group is killed after ``timeout`` seconds, or by ``stop``. It must be
+    made by a thread that outlives it (``spawn``)."""
 
     def __init__(self, call: str, tag: str, env: dict, timeout: float):
-        import os
-        import subprocess
         import threading
 
         here = os.path.dirname(os.path.abspath(__file__))
         self.tag = tag
         self.record = None
-        self.proc = subprocess.Popen(
+        self.proc = spawn(
             [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
             cwd=here, env={**os.environ, **env}, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
-        self._timer = threading.Timer(timeout, self.proc.kill)
+        self._timer = threading.Timer(
+            timeout, _signal_group, (self.proc, signal.SIGKILL))
         self._timer.start()
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
@@ -5186,20 +5483,15 @@ class FreshChild:
             self.proc.wait()
             self._reader.join()
         finally:
-            self._timer.cancel()
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait()
+            self.stop()
         if self.proc.returncode != 0 or self.record is None:
             raise AssertionError(f"{self.tag} process exit "
                                  f"{self.proc.returncode}")
         return self.record
 
     def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
         self._timer.cancel()
+        stop_all([self.proc], grace_s=0.0)
 
 
 def churn_live_child() -> None:
@@ -5251,26 +5543,25 @@ def membership_live() -> "FreshChild":
     """Phase 14 (b), started: ``churn_live_child`` in a fresh process. It
     runs beside phases 11-13 and phase 14's replays (none of which times
     the host cost of a node, and whose kernel times are medians over
-    bursts far shorter than the cluster's sparse sweeps); its result is
-    read, and K1 timed at its shapes, once it has ended."""
+    bursts far shorter than the cluster's sparse sweeps) and phase 15's
+    first minutes (whose seconds to block 0 are read with it beside); its
+    result is read, and K1 timed at its shapes, once it has ended."""
     return FreshChild("churn_live_child()", "CHURNLIVE", CHURN_ENV,
                       CHURN_LIVE_TIMEOUT_S)
 
 
 def membership_phase(name_power: str, seed: int, live: "FreshChild",
-                     beside=None) -> list:
+                     join=None) -> list:
     """Phase 14: its replays in a fresh process, and (b)'s result from
-    ``live``; ``beside()``, if given, once (b) has ended, while the
-    replays go on (it returns a call that waits for what it started);
-    then, with the card to itself, K1 against its plain version at every
-    shape with two peer-set slots or more that (a) and (b) gave it.
+    ``live``; then ``join()``, if given, which waits for what runs beside
+    them; then, with the card to itself, K1 against its plain version at
+    every shape with two peer-set slots or more that (a) and (b) gave it.
     Returns the kernels-line rows."""
     t0 = time.perf_counter()
     child = FreshChild(f"membership_child({seed})", "MEMBERSHIP", CHURN_ENV,
                        CHURN_TIMEOUT_S)
     try:
         lrec = live.result()
-        join = beside() if beside is not None else None
         rec = child.result()
     finally:
         child.stop()
@@ -5899,7 +6190,6 @@ def byz_child(arm: str, seed: int) -> None:
     ``BYZANTINE`` line of JSON for the parent: the arm's record, and for
     (b) (a)'s counts and one real batch of its most frequent B and one of
     its largest, for K3's rows."""
-    import os
 
     import torch
 
@@ -6027,11 +6317,18 @@ FH_BLOCKS = 10
 FH_WINDOW_S = 90.0
 FH_DRAIN_S = 60.0
 FH_START_S = 180.0  # for every process to reach Babbling
-FH_STOP_S = 60.0  # for a process to exit after SIGTERM
+FH_STOP_S = 60.0  # for every process to exit after SIGTERM
+# for a node process, from its main's return, to settle its counts
+FH_NODE_STOP_S = 30.0
 # the file each node process writes into its datadir once it has stopped
 FH_RECORD = "firehose.json"
 # SubmitTx verdicts that shed a transaction (dummy/socket_client.py)
 FH_SHED = ("full", "throttled")
+# each process's /stats kept at the end of an arm: the async engine's
+# inbound-sync pipeline (node/pipeline.py)
+FH_STATS = ("gossip_inflight_syncs", "gossip_inflight_syncs_peak",
+            "gossip_pipelined_syncs", "gossip_pull_pipelined_syncs",
+            "gossip_backpressure_stalls", "gossip_pipeline_queue_depth")
 # the arms, one after the other: label, BABBLE_DEVICE_VERIFY
 FH_ARMS = {
     "a": ("K3, BABBLE_DEVICE_VERIFY=1", True),
@@ -6040,20 +6337,25 @@ FH_ARMS = {
 
 
 class OpenLoopPacer:
-    """The open-loop firehose: transaction ``i`` (``stamped_tx(i)``) is due
-    at ``t0 + i / rate`` and goes to ``senders[i % len(senders)]``, each
-    sender on a thread of its own. A sender that falls behind sends its
-    backlog at once and records how far behind it was; it never skips a
-    transaction and never waits on a commit. A verdict of ``accepted``
-    admits the transaction, one of FH_SHED sheds it (it is not retried),
-    and any other verdict or a failed call is kept apart for the checks to
-    refuse."""
+    """The open-loop firehose: transaction ``i`` is due at ``t0 + i /
+    rate`` and stamped with that time (``stamped_tx(i, due)``); sender
+    ``k`` takes the serials ``serials[k] + j * stride`` (by default ``k + j
+    * len(senders)``: transaction i goes to ``senders[i % len(senders)]``),
+    each sender on a thread of its own with one call in flight. A sender
+    that falls behind sends its backlog at once and records how far behind
+    it was; it never skips a transaction and never waits on a commit. A
+    verdict of ``accepted`` admits the transaction, one of
+    FH_SHED sheds it (it is not retried), and any other verdict or a failed
+    call is kept apart for the checks to refuse."""
 
-    def __init__(self, senders, rate: float):
+    def __init__(self, senders, rate: float, serials=None, stride=None):
         import threading
 
         self.senders = senders
         self.rate = rate
+        self.serials = list(range(len(senders)) if serials is None
+                            else serials)
+        self.stride = stride or len(senders)
         self.accepted = [[] for _ in senders]
         self.shed = [[] for _ in senders]
         self.other = [[] for _ in senders]  # (serial, verdict or error)
@@ -6062,10 +6364,12 @@ class OpenLoopPacer:
         self._threads = []
         self.t0 = None
 
-    def start(self) -> None:
+    def start(self, t0=None) -> None:
+        """Starts every sender on the schedule from ``t0`` (a
+        ``time.monotonic()`` reading, now by default)."""
         import threading
 
-        self.t0 = time.monotonic()
+        self.t0 = time.monotonic() if t0 is None else t0
         self._threads = [threading.Thread(target=self._run, args=(k,),
                                           daemon=True)
                          for k in range(len(self.senders))]
@@ -6073,14 +6377,14 @@ class OpenLoopPacer:
             t.start()
 
     def _run(self, k: int) -> None:
-        send, i = self.senders[k], k
+        send, i = self.senders[k], self.serials[k]
         while not self._stop.is_set():
             due = self.t0 + i / self.rate
             ahead = due - time.monotonic()
             if ahead > 0 and self._stop.wait(ahead):
                 return
             self.lag[k].append(max(0.0, -ahead))
-            tx = stamped_tx(i)
+            tx = stamped_tx(i, due)
             try:
                 verdict = send(tx)
             except (OSError, RuntimeError) as err:
@@ -6092,7 +6396,7 @@ class OpenLoopPacer:
                 self.shed[k].append(tx)
             else:
                 self.other[k].append((i, verdict))
-            i += len(self.senders)
+            i += self.stride
 
     def stop(self) -> None:
         """Stops every sender and waits for its call in flight."""
@@ -6154,32 +6458,275 @@ def exactly_once_held(report) -> bool:
                == r["unknown"] == 0 for r in report)
 
 
-def firehose_run(label: str, apps, last_blocks, body_hashes, alive=None,
-                 rate: float = FH_RATE, warmup_s: float = FH_WARMUP_S,
-                 blocks=FH_BLOCKS, window_s: float = FH_WINDOW_S,
-                 drain_s: float = FH_DRAIN_S) -> dict:
-    """Phase 16's load and checks over a running cluster, whatever hosts
-    its nodes: ``apps`` are its ``DummySocketClient``s (app ``k`` beside
-    node ``k``), ``last_blocks()`` gives every node's last block index,
-    ``body_hashes(i)`` every node's body hash of block ``i`` and
-    ``alive()`` raises if a node has gone. An ``OpenLoopPacer`` at ``rate``
-    over the apps, ``warmup_s`` of warm-up, then the window: until every
-    node has committed ``blocks`` blocks past the one it held at the
-    window's start (with ``blocks`` None, ``window_s`` always), at most
-    ``window_s``; then the load stops and the apps drain until each holds
-    every admitted transaction, at most ``drain_s``. Checks: the window
-    reached its blocks, no verdict or call other than admitted or shed,
-    identical bodies at every index all nodes committed, and every app's
-    state holding every admitted transaction exactly once and nothing shed
-    (``exactly_once``). Returns the record."""
+def tx_serial(tx: bytes) -> int:
+    """The serial ``stamped_tx`` wrote into ``tx``."""
     import struct
 
-    alive = alive or (lambda: None)
-    commits = [AppCommits(app) for app in apps]
-    pacer = OpenLoopPacer([app.submit_tx for app in apps], rate)
-    pacer.start()
+    return struct.unpack(">dQ", tx[:16])[1]
+
+
+class AppLoad:
+    """The firehose over apps in this process (``DummySocketClient``s): an
+    ``OpenLoopPacer`` over them (app ``k`` takes the serials ``serials[k]
+    + j * stride``), ``AppCommits`` on each, and what ``firehose_run`` asks
+    of a load, transactions named by their serials."""
+
+    def __init__(self, apps, rate: float, serials=None, stride=None):
+        self.apps = apps
+        self.commits = [AppCommits(app) for app in apps]
+        self.pacer = OpenLoopPacer([app.submit_tx for app in apps], rate,
+                                   serials, stride)
+        self._seen = [set() for _ in apps]  # each app's committed serials
+        self._upto = [0] * len(apps)  # ... from this many transactions
+
+    def start(self, t0=None) -> float:
+        self.pacer.start(t0)
+        return self.pacer.t0
+
+    def stop(self) -> dict:
+        """Stops the pacer; returns the serials admitted and shed, the
+        other verdicts and every send's lag in seconds."""
+        p = self.pacer
+        p.stop()
+        return {"admitted": [tx_serial(tx) for per in p.accepted
+                             for tx in per],
+                "shed": [tx_serial(tx) for per in p.shed for tx in per],
+                "other": [x for per in p.other for x in per],
+                "lags": [x for per in p.lag for x in per]}
+
+    def _committed(self, k: int) -> set:
+        txs = self.apps[k].state.committed_txs
+        n = len(txs)
+        self._seen[k].update(map(tx_serial, txs[self._upto[k]:n]))
+        self._upto[k] = n
+        return self._seen[k]
+
+    def drained(self, want) -> bool:
+        """Whether every app holds every serial of ``want``."""
+        return all(want <= self._committed(k) for k in range(len(self.apps)))
+
+    def report(self, want, shed, t0: float, t1: float) -> dict:
+        """``exactly_once`` over the apps, and inside the window [t0, t1]:
+        each app's blocks and transactions committed, and each
+        transaction's seconds to its commit at the app it was submitted to,
+        from the time it was due (``lat``: a sender's backlog counts) and
+        from the time it was sent (``lat_sent``)."""
+        import struct
+
+        p = self.pacer
+        lat, lat_sent, in_window = [], [], []
+        for k, c in enumerate(self.commits):
+            mine = [(t, txs) for t, _, txs in list(c.blocks) if t0 <= t <= t1]
+            in_window.append([len(mine), sum(len(txs) for _, txs in mine)])
+            for t, txs in mine:
+                for tx in txs:
+                    due, serial, sent = struct.unpack(">dQd", tx[:24])
+                    if serial % p.stride == p.serials[k] % p.stride:
+                        lat.append(t - due)
+                        lat_sent.append(t - sent)
+        committed = [list(map(tx_serial, app.state.committed_txs))
+                     for app in self.apps]
+        return {"exactly_once": exactly_once(want, shed, committed),
+                "window_by_app": in_window, "lat": lat, "lat_sent": lat_sent}
+
+
+def _answer(obj) -> None:
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+def firehose_sender() -> int:
+    """A process of ``SenderLoad``: its apps (``DummySocketClient``s on
+    ports the system picks, each for a node's proxy address of its first
+    input line) under an ``AppLoad`` on its share of the schedule; it
+    answers with the apps' addresses, then takes one command a line on its
+    standard input (start, stop, drained, report), each answered with one
+    line of JSON on its standard output, bulky answers through files; it
+    exits at the end of its input."""
+    from babble_tpu_torch.dummy.socket_client import DummySocketClient
+
+    conf = json.loads(sys.stdin.readline())
+    apps = []
     try:
-        while time.monotonic() < pacer.t0 + warmup_s:
+        for proxy in conf["proxy"]:
+            apps.append(DummySocketClient("127.0.0.1:0", proxy))
+        load = AppLoad(apps, conf["rate"], conf["apps"], conf["stride"])
+        _answer({"ready": [app.addr for app in apps]})
+        want = None
+        for line in sys.stdin:
+            cmd = json.loads(line)
+            if cmd["op"] == "start":
+                _answer({"t0": load.start(cmd["t0"])})
+            elif cmd["op"] == "stop":
+                path = conf["out"] + ".sent.json"
+                with open(path, "w") as f:
+                    json.dump({**load.stop(),
+                               "cpu_s": [time.process_time()]}, f)
+                _answer({"path": path})
+            elif cmd["op"] == "drained":
+                if want is None:
+                    with open(cmd["want"]) as f:
+                        want = set(json.load(f))
+                _answer({"drained": load.drained(want)})
+            elif cmd["op"] == "report":
+                with open(cmd["want"]) as f:
+                    want = set(json.load(f))
+                with open(cmd["shed"]) as f:
+                    shed = set(json.load(f))
+                path = conf["out"] + ".report.json"
+                with open(path, "w") as f:
+                    json.dump(load.report(want, shed, cmd["t0"], cmd["t1"]), f)
+                _answer({"path": path})
+            else:
+                raise ValueError(f"firehose_sender: unknown command {cmd}")
+    finally:
+        for app in apps:
+            app.close()
+    return 0
+
+
+class SenderLoad:
+    """The firehose's load: an app (``DummySocketClient``) for each node
+    proxy address of ``proxies``, in ``procs`` sender processes
+    (``firehose_sender``, started through ``spawn``), so that the apps'
+    submissions and commits (each app takes every block) run beside the
+    harness, not behind its interpreter lock. Sender ``j`` owns the apps
+    j, j + procs, ... and their share of one schedule at ``rate``, whose t0
+    all share (``time.monotonic`` reads one clock in every process of a
+    host). ``addrs[k]`` is app ``k``'s address, for its node's
+    ``--client-connect``. Each command goes to every sender at once;
+    ``close`` ends their input and stops them."""
+
+    def __init__(self, proxies, rate: float, procs: int, tmp: str):
+        here = os.path.dirname(os.path.abspath(__file__))
+        n = len(proxies)
+        self.tmp, self.n = tmp, n
+        self.owned = [list(range(j, n, procs)) for j in range(procs)]
+        self.procs, self.errs = [], []
+        self._want = None
+        try:
+            for j, mine in enumerate(self.owned):
+                err = open(os.path.join(tmp, f"sender{j}.err"), "w")
+                self.errs.append(err)
+                self.procs.append(spawn(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.firehose_sender())"],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=err, text=True, cwd=here))
+                self._send(j, {"apps": mine, "rate": rate, "stride": n,
+                               "proxy": [proxies[k] for k in mine],
+                               "out": os.path.join(tmp, f"sender{j}")})
+            self.addrs = self._by_app(a["ready"] for a in self._answers())
+        except BaseException:
+            self.close()
+            raise
+
+    def _send(self, j: int, cmd: dict) -> None:
+        self.procs[j].stdin.write(json.dumps(cmd) + "\n")
+        self.procs[j].stdin.flush()
+
+    def _answers(self) -> list:
+        out = []
+        for j, p in enumerate(self.procs):
+            line = p.stdout.readline()
+            if not line:
+                self.errs[j].flush()
+                with open(self.errs[j].name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"[firehose] sender {j} exited with "
+                                     f"{p.wait()}:\n{tail}")
+            out.append(json.loads(line))
+        return out
+
+    def _ask(self, cmd: dict) -> list:
+        for j in range(len(self.procs)):
+            self._send(j, cmd)
+        return self._answers()
+
+    def _dump(self, name: str, serials) -> str:
+        path = os.path.join(self.tmp, name)
+        with open(path, "w") as f:
+            json.dump(sorted(serials), f)
+        return path
+
+    def _by_app(self, parts) -> list:
+        out = [None] * self.n
+        for mine, part in zip(self.owned, parts):
+            for k, x in zip(mine, part):
+                out[k] = x
+        return out
+
+    def start(self, t0=None) -> float:
+        # the senders start together: a schedule a little ahead of now
+        t0 = time.monotonic() + 0.5 if t0 is None else t0
+        self._ask({"op": "start", "t0": t0})
+        return t0
+
+    def stop(self) -> dict:
+        sent = {"admitted": [], "shed": [], "other": [], "lags": [],
+                "cpu_s": []}
+        for a in self._ask({"op": "stop"}):
+            with open(a["path"]) as f:
+                part = json.load(f)
+            for key in sent:
+                sent[key] += part[key]
+        return sent
+
+    def drained(self, want) -> bool:
+        if self._want is None:
+            self._want = self._dump("want.json", want)
+        return all(a["drained"] for a in
+                   self._ask({"op": "drained", "want": self._want}))
+
+    def report(self, want, shed, t0: float, t1: float) -> dict:
+        parts = []
+        for a in self._ask({"op": "report", "t0": t0, "t1": t1,
+                            "want": self._dump("want.json", want),
+                            "shed": self._dump("shed.json", shed)}):
+            with open(a["path"]) as f:
+                parts.append(json.load(f))
+        return {"exactly_once": self._by_app(p["exactly_once"]
+                                             for p in parts),
+                "window_by_app": self._by_app(p["window_by_app"]
+                                              for p in parts),
+                "lat": [x for p in parts for x in p["lat"]],
+                "lat_sent": [x for p in parts for x in p["lat_sent"]]}
+
+    def close(self) -> None:
+        """Ends the senders' input; each closes its apps and exits, under
+        one shared deadline."""
+        for p in self.procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        stop_all(self.procs, grace_s=FH_STOP_S)
+        for err in self.errs:
+            err.close()
+
+
+def firehose_run(label: str, load, last_blocks, body_hashes, alive=None,
+                 warmup_s: float = FH_WARMUP_S, blocks=FH_BLOCKS,
+                 window_s: float = FH_WINDOW_S,
+                 drain_s: float = FH_DRAIN_S) -> dict:
+    """Phases 16 and 17's load and checks over a running cluster, whatever
+    hosts its nodes: ``load`` is a ``SenderLoad`` over its apps (app ``k``
+    beside node ``k``); ``last_blocks()`` gives every node's last block index,
+    ``body_hashes(i)`` every node's body hash of block ``i`` and
+    ``alive()`` raises if a node has gone. The load's schedule, then
+    ``warmup_s`` of warm-up, then the window: until every node has
+    committed ``blocks`` blocks past the one it held at the window's start
+    (with ``blocks`` None, ``window_s`` always), at most ``window_s``; then
+    the load stops and the apps drain until each holds every admitted
+    transaction, at most ``drain_s``. Checks: the window reached its
+    blocks, no verdict or call other than admitted or shed, identical
+    bodies at every index all nodes committed, and every app's state
+    holding every admitted transaction exactly once and nothing shed
+    (``exactly_once``). Returns the record."""
+    alive = alive or (lambda: None)
+    t_load = load.start()
+    try:
+        while time.monotonic() < t_load + warmup_s:
             alive()
             time.sleep(0.1)
         start = last_blocks()
@@ -6194,41 +6741,35 @@ def firehose_run(label: str, apps, last_blocks, body_hashes, alive=None,
             time.sleep(0.25)
         t1 = time.monotonic()
     finally:
-        pacer.stop()
+        sent = load.stop()
     t_stop = time.monotonic()
+    lags = sorted(sent["lags"])
     rec = {"arm": label, "window_s": t1 - t0, "start_blocks": start,
-           "end_blocks": now, "window_reached": reached}
-    rec.update(pacer.counts())
-    accepted = [tx for per in pacer.accepted for tx in per]
-    shed = [tx for per in pacer.shed for tx in per]
-    want = set(accepted)
+           "end_blocks": now, "window_reached": reached,
+           "offered": len(lags), "load_s": t_stop - t_load,
+           "admitted": len(sent["admitted"]), "shed": len(sent["shed"]),
+           "other": sent["other"], "sender_cpu_s": sent.get("cpu_s"),
+           "lag_ms": [1e3 * _pct(lags, 0.5), 1e3 * _pct(lags, 0.95),
+                      1e3 * (lags[-1] if lags else 0.0)]}
+    want, shed = set(sent["admitted"]), set(sent["shed"])
     while True:
         alive()
-        if all(want <= set(app.state.committed_txs) for app in apps):
+        if load.drained(want):
             break
         if time.monotonic() - t_stop > drain_s:
             break
         time.sleep(0.25)
     rec["drain_s"] = time.monotonic() - t_stop
-    rec["exactly_once"] = exactly_once(
-        accepted, shed, [list(app.state.committed_txs) for app in apps])
-    # inside the window: blocks and transactions each app committed, and
-    # each transaction's seconds from its stamp to its commit at the app
-    # it was submitted to
-    lat, in_window = [], []
-    for k, c in enumerate(commits):
-        mine = [(t, bi, txs) for t, bi, txs in list(c.blocks)
-                if t0 <= t <= t1]
-        in_window.append([len(mine), sum(len(txs) for _, _, txs in mine)])
-        for t, _, txs in mine:
-            for tx in txs:
-                stamp, serial = struct.unpack(">dQ", tx[:16])
-                if serial % len(apps) == k:
-                    lat.append(t - stamp)
-    rec["window_by_app"] = in_window
+    rep = load.report(want, shed, t0, t1)
+    rec["exactly_once"] = rep["exactly_once"]
+    rec["window_by_app"] = in_window = rep["window_by_app"]
+    lat = rep["lat"]
     rec["tx_per_s"] = min(n for _, n in in_window) / rec["window_s"]
     rec["p50_ms"] = 1e3 * _pct(lat, 0.5) if lat else None
     rec["p95_ms"] = 1e3 * _pct(lat, 0.95) if lat else None
+    sent = rep["lat_sent"]
+    rec["sent_p50_ms"] = 1e3 * _pct(sent, 0.5) if sent else None
+    rec["sent_p95_ms"] = 1e3 * _pct(sent, 0.95) if sent else None
     rec["latency_samples"] = len(lat)
     common = min(last_blocks())
     for bi in range(common + 1):
@@ -6261,14 +6802,16 @@ def firehose_node(argv) -> int:
     warm-up launch in ``Node.init`` apart; K1's launches beside the sweeps
     they must equal (the batcher's, or the node's own without it); the
     core's batch verifications and single re-checks; the offload's sweeps,
-    small windows and fallbacks; and the timings."""
-    import os
+    small windows and fallbacks; the undetermined windows its flushes saw
+    (``TensorConsensus.use_device``), by the power of two at or above each;
+    and the timings."""
     import threading
 
     import torch
 
     from babble_tpu_torch.cli.main import main as cli_main
     from babble_tpu_torch.crypto.batch import collect_signature_items
+    from babble_tpu_torch.hashgraph.accel import TensorConsensus
     from babble_tpu_torch.hashgraph.sweep_batcher import SweepBatcher
     from babble_tpu_torch.node.core import Core
     from babble_tpu_torch.node.node import Node
@@ -6276,9 +6819,10 @@ def firehose_node(argv) -> int:
 
     datadir = argv[argv.index("--datadir") + 1]
     nodes = []  # (node, K3 launches once it was initialised)
-    calls, batches, busy = [], {}, [0]
+    calls, batches, busy, windows = [], {}, [0], Counter()
     lock = threading.Lock()
     prevalidate, init = Core._batch_prevalidate, Node.init
+    use_device = TensorConsensus.use_device
 
     def timed(self, decoded):
         n_items = len(decoded) + sum(len(ev.body.internal_transactions)
@@ -6305,45 +6849,74 @@ def firehose_node(argv) -> int:
         init(self)
         nodes.append((self, kernels.launch_counts()["ecdsa_shamir"]))
 
+    def use_device_seen(self, undetermined):
+        with lock:
+            windows[1 << max(0, int(undetermined) - 1).bit_length()] += 1
+        return use_device(self, undetermined)
+
     Core._batch_prevalidate = timed
     Node.init = init_counted
+    TensorConsensus.use_device = use_device_seen
     rc = cli_main(argv)
+    main_returned = time.monotonic()
     node, warmup = nodes[0]
-    deadline = time.monotonic() + FH_STOP_S
-    while True:
-        with node.core_lock, lock:  # a sync in flight finishes first
-            if not busy[0]:
-                break
-        if time.monotonic() > deadline:
-            raise AssertionError("[firehose] a batch verification never "
-                                 "returned")
-        time.sleep(0.05)
-    accel = node.core.hg.accel
-    batcher = SweepBatcher.instance()
-    while not batcher.idle():
-        if time.monotonic() > deadline:
-            raise AssertionError("[firehose] the sweep batcher never went "
-                                 "idle")
-        time.sleep(0.05)
-    if accel.device.type == "cuda":
-        torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    if accel.batcher:
-        b = batcher.stats()
-        k1_want = b["batch_batches"] + b["batch_singles"]
-    else:
-        k1_want = accel.sweeps + accel.stale_drops + accel.busy()
+    # What runs on after main's return (daemon threads: syncs in flight,
+    # pipelined inserts, batch verifications, the batcher's waves) must not
+    # move the counts between their readings: under the core lock no
+    # insert or flush runs, so the batcher drains to idle; the K3 count
+    # and the core's batch verifications are read together with no
+    # verification in flight. Within FH_NODE_STOP_S of main's return, so
+    # that a process exits before the parent's deadline.
+    deadline = main_returned + FH_NODE_STOP_S
+
+    def wait(done, what: str) -> None:
+        while not done():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[firehose] {what} within "
+                                     f"{FH_NODE_STOP_S} s of main's return")
+            time.sleep(0.05)
+
+    if not node.core_lock.acquire(timeout=FH_NODE_STOP_S):
+        raise AssertionError("[firehose] the core lock stayed held")
+    try:
+        k3 = []
+
+        def verifications_read() -> bool:
+            with lock:
+                if not busy[0]:
+                    k3.append((kernels.launch_counts()["ecdsa_shamir"],
+                               node.core.ingest_batch_verifies,
+                               node.core.ingest_fallback_singles))
+                return bool(k3)
+
+        wait(verifications_read, "a batch verification did not return")
+        accel = node.core.hg.accel
+        batcher = SweepBatcher.instance()
+        wait(batcher.idle, "the sweep batcher did not go idle")
+        if accel.device.type == "cuda":
+            torch.cuda.synchronize()
+        k1 = kernels.launch_counts()["member_ss_counts"]
+        if accel.batcher:
+            b = batcher.stats()
+            k1_want = b["batch_batches"] + b["batch_singles"]
+        else:
+            k1_want = accel.sweeps + accel.stale_drops + accel.busy()
+        offload = {
+            "batcher": accel.batcher, "sweeps": accel.sweeps,
+            "small_windows": accel.small_windows,
+            "fallbacks": accel.fallbacks, "min_window": accel.min_window,
+            "sweep_shapes": [[list(k), v]
+                             for k, v in batcher.sweep_shapes.items()]}
+    finally:
+        node.core_lock.release()
+    k3_launches, batch_verifies, fallback_singles = k3[0]
     rec = {
         "k3_warmup": warmup,
-        "k3_launches": counts["ecdsa_shamir"] - warmup,
-        "k1_launches": counts["member_ss_counts"], "k1_want": k1_want,
-        "batcher": accel.batcher,
-        "batch_verifies": node.core.ingest_batch_verifies,
-        "fallback_singles": node.core.ingest_fallback_singles,
-        "sweeps": accel.sweeps, "small_windows": accel.small_windows,
-        "fallbacks": accel.fallbacks,
-        "sweep_shapes": [[list(k), v]
-                         for k, v in batcher.sweep_shapes.items()],
+        "k3_launches": k3_launches - warmup,
+        "k1_launches": k1, "k1_want": k1_want, **offload,
+        "batch_verifies": batch_verifies,
+        "fallback_singles": fallback_singles,
+        "windows": sorted(windows.items()),
         "calls": calls, "batches": batches,
     }
     with open(os.path.join(datadir, FH_RECORD), "w") as f:
@@ -6351,36 +6924,36 @@ def firehose_node(argv) -> int:
     return rc
 
 
-def firehose_arm(label: str, device_verify: bool) -> dict:
-    """One arm of phase 16: FH_NODES ``firehose_node`` processes (each
-    ``python -m babble_tpu_torch run --accelerator`` with its own datadir,
-    key, peers.json, service, socket proxy and a ``DummySocketClient`` in
-    this process as its app; phase 9's heartbeats; the offload, the sweep
-    batcher and the mempool at their defaults, no ``BABBLE_ACCEL_*``
-    variable), with ``BABBLE_DEVICE_VERIFY=1`` or without it, driven by
-    ``firehose_run``. Every process must reach Babbling and none may exit
-    early; after SIGTERM each must exit 0 having written its record: no
-    offload fallback, K1's launches equal to its sweeps, no single
-    re-check, and K3's launches after start-up equal to its batch
-    verifications (more than 0, one warm-up launch apart) with device
-    verification, none without."""
-    import os
+def firehose_arm(label: str, device_verify: bool, n: int = FH_NODES,
+                 rate: float = FH_RATE, argv=(), shared_slots: bool = False,
+                 senders: int = 1, window_s: float = FH_WINDOW_S) -> dict:
+    """One arm of phase 16 or 17: ``n`` ``firehose_node`` processes (each
+    ``python -m babble_tpu_torch run --accelerator`` and ``argv``, with its
+    own datadir, key, peers.json, service, socket proxy and a
+    ``DummySocketClient`` as its app, the apps in ``senders``
+    ``SenderLoad`` processes; phase 9's heartbeats; the
+    offload, the sweep batcher and the mempool at their defaults, no
+    ``BABBLE_ACCEL_*`` variable but, with ``shared_slots``, one
+    ``BABBLE_ACCEL_SLOT_DIR`` for all), with ``BABBLE_DEVICE_VERIFY=1`` or
+    without it, driven by ``firehose_run`` at ``rate`` for at most
+    ``window_s``. Every process must reach Babbling and none may exit
+    early; after SIGTERM, under one shared deadline, each must exit 0
+    having written its record: no offload fallback, K1's launches equal to
+    its sweeps, no single re-check, and K3's launches after start-up equal
+    to its batch verifications (more than 0, one warm-up launch apart)
+    with device verification, none without. The record carries every
+    process's FH_STATS from its last ``/stats``."""
     import shutil
-    import signal
-    import subprocess
     import tempfile
 
     from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
     from babble_tpu_torch.crypto.keys import generate_key
-    from babble_tpu_torch.dummy.socket_client import DummySocketClient
     from babble_tpu_torch.hashgraph.block import BlockBody
 
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_firehose_")
-    n = FH_NODES
-    ports = free_ports(4 * n)
-    gossip, service, proxy, client = (ports[i * n:(i + 1) * n]
-                                      for i in range(4))
+    ports = free_ports(3 * n)
+    gossip, service, proxy = (ports[i * n:(i + 1) * n] for i in range(3))
     keys = [generate_key() for _ in range(n)]
     peers = [{"NetAddr": f"127.0.0.1:{gossip[i]}",
               "PubKeyHex": k.public_key.hex(), "Moniker": f"f{i}"}
@@ -6390,7 +6963,10 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
            and k != "BABBLE_DEVICE_VERIFY"}
     if device_verify:
         env["BABBLE_DEVICE_VERIFY"] = "1"
-    procs, apps, errs, dirs = [], [], [], []
+    if shared_slots:
+        env["BABBLE_ACCEL_SLOT_DIR"] = os.path.join(tmp, "slots")
+    procs, errs, dirs, load = [], [], [], None
+    addr = "127.0.0.1:{}".format
 
     def check_alive() -> None:
         for i, p in enumerate(procs):
@@ -6402,7 +6978,7 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
                                      f"early with {p.returncode}:\n{tail}")
 
     def stats(i: int) -> dict:
-        return json.loads(http_get(f"http://127.0.0.1:{service[i]}/stats",
+        return json.loads(http_get(f"http://{addr(service[i])}/stats",
                                    timeout=10))
 
     def last_blocks() -> list:
@@ -6410,11 +6986,13 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
 
     def body_hashes(bi: int) -> list:
         return [BlockBody.from_dict(json.loads(http_get(
-            f"http://127.0.0.1:{service[i]}/block/{bi}"))["Body"]).hash()
+            f"http://{addr(service[i])}/block/{bi}"))["Body"]).hash()
             for i in range(n)]
 
     try:
         t_start = time.perf_counter()
+        # the apps listen before their nodes start
+        load = SenderLoad([addr(p) for p in proxy], rate, senders, tmp)
         for i, k in enumerate(keys):
             dd = os.path.join(tmp, f"f{i}")
             os.makedirs(dd)
@@ -6424,21 +7002,19 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
                 with open(os.path.join(dd, fn), "w") as f:
                     json.dump(peers, f)
             errs.append(open(os.path.join(tmp, f"f{i}.err"), "w"))
-            procs.append(subprocess.Popen(
+            procs.append(spawn(
                 [sys.executable, "-c", "import sys, chip_smoke; "
                  "sys.exit(chip_smoke.firehose_node(sys.argv[1:]))",
-                 "run", "--accelerator", "--datadir", dd,
-                 "--listen", f"127.0.0.1:{gossip[i]}",
-                 "--service-listen", f"127.0.0.1:{service[i]}",
-                 "--proxy-listen", f"127.0.0.1:{proxy[i]}",
-                 "--client-connect", f"127.0.0.1:{client[i]}",
+                 "run", "--accelerator", *argv, "--datadir", dd,
+                 "--listen", addr(gossip[i]),
+                 "--service-listen", addr(service[i]),
+                 "--proxy-listen", addr(proxy[i]),
+                 "--client-connect", load.addrs[i],
                  "--heartbeat", str(HEARTBEAT_S),
                  "--slow-heartbeat", str(SLOW_HEARTBEAT_S),
                  "--moniker", f"f{i}", "--log", "error"],
                 stdout=subprocess.DEVNULL, stderr=errs[i], cwd=here,
                 env=env))
-            apps.append(DummySocketClient(f"127.0.0.1:{client[i]}",
-                                          f"127.0.0.1:{proxy[i]}"))
         deadline = time.monotonic() + FH_START_S
         up = set()
         while len(up) < n:
@@ -6454,24 +7030,20 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
                     pass
             time.sleep(0.5)
         up_s = time.perf_counter() - t_start
-        rec = firehose_run(label, apps, last_blocks, body_hashes,
-                           check_alive)
+        rec = firehose_run(label, load, last_blocks, body_hashes,
+                           check_alive, window_s=window_s)
         rec["up_s"] = up_s
+        log_load(rec)
+        rec["stats"] = [{k: stats(i).get(k) for k in FH_STATS}
+                        for i in range(n)]
         check_alive()
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.send_signal(signal.SIGTERM)
-        stopped = True
-        for p in procs:
-            try:
-                p.wait(timeout=FH_STOP_S)
-            except subprocess.TimeoutExpired:
-                stopped = False
-                p.kill()
-                p.wait(timeout=30)
-        for app in apps:
-            app.close()
+        if load is not None:
+            load.close()
+        stopped = stop_all(procs, grace_s=FH_STOP_S)
+        log(f"[firehose/{label}] after SIGTERM, each process exited within "
+            "(s; None: killed at the deadline) "
+            f"{[None if x is None else round(x, 2) for x in stopped]}")
         for f in errs:
             f.close()
         ends = []  # per process: exit code, record, standard error's tail
@@ -6483,13 +7055,15 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
             if os.path.exists(path):
                 with open(path) as f:
                     record = json.load(f)
-            ends.append((p.returncode, record, tail))
+            ends.append((stopped[i] is not None, p.returncode, record, tail))
         shutil.rmtree(tmp, ignore_errors=True)
+    rec["exit_s"] = stopped
     nodes = []
-    for i, (code, r, tail) in enumerate(ends):
-        if not stopped or code != 0 or r is None:
+    for i, (clean, code, r, tail) in enumerate(ends):
+        if not clean or code != 0 or r is None:
             raise AssertionError(f"[firehose/{label}] node {i} exit {code} "
-                                 f"after SIGTERM, record written "
+                                 f"after SIGTERM (within {FH_STOP_S} s: "
+                                 f"{clean}), record written "
                                  f"{r is not None}:\n{tail}")
         nodes.append(r)
     for i, r in enumerate(nodes):
@@ -6515,33 +7089,48 @@ def firehose_arm(label: str, device_verify: bool) -> dict:
     return rec
 
 
-def log_firehose(rec: dict, name_power: str) -> None:
+def log_load(rec: dict) -> None:
+    """An arm's load and window, as soon as ``firehose_run`` returns."""
     eo = rec["exactly_once"]
-    log(f"[firehose/{rec['arm']}] {FH_NODES} processes up in "
-        f"{rec['up_s']:.1f} s (set-up); offered {rec['offered']}, admitted "
-        f"{rec['admitted']}, shed {rec['shed']}, committed per app "
-        f"{[r['committed'] for r in eo]} (each holds every admitted "
-        f"transaction once, nothing shed; drained in {rec['drain_s']:.1f} s);"
-        f" sender lag p50/p95/max ms {[round(x, 1) for x in rec['lag_ms']]}")
+    log(f"[firehose/{rec['arm']}] {len(rec['window_by_app'])} processes up in "
+        f"{rec['up_s']:.1f} s (set-up); offered {rec['offered']} in "
+        f"{rec['load_s']:.2f} s ({rec['offered'] / rec['load_s']:.1f} tx/s "
+        f"offered), admitted {rec['admitted']}, shed {rec['shed']}, "
+        f"committed per app {[r['committed'] for r in eo]} (each holds "
+        "every admitted transaction once, nothing shed; drained in "
+        f"{rec['drain_s']:.1f} s); sender lag p50/p95/max ms "
+        f"{[round(x, 1) for x in rec['lag_ms']]}"
+        + (f", each sender process's CPU seconds {rec['sender_cpu_s']}"
+           if rec["sender_cpu_s"] else ""))
     log(f"[firehose/{rec['arm']}] window {rec['window_s']:.2f} s, blocks "
         f"{rec['start_blocks']} -> {rec['end_blocks']} per node (blocks, "
         f"transactions committed in it per app {rec['window_by_app']}): "
-        f"{rec['tx_per_s']:.1f} tx/s committed, submit-to-commit p50 "
-        f"{rec['p50_ms']} ms, p95 {rec['p95_ms']} ms "
+        f"{rec['tx_per_s']:.1f} tx/s committed; to its commit, from the time "
+        f"each transaction was due (the senders' backlog counts) p50 "
+        f"{rec['p50_ms']} ms, p95 {rec['p95_ms']} ms, from the time it was "
+        f"sent p50 {rec['sent_p50_ms']} ms, p95 {rec['sent_p95_ms']} ms "
         f"({rec['latency_samples']} samples); identical bodies to block "
         f"{rec['common_block']}")
+
+
+def log_firehose(rec: dict, name_power: str) -> None:
+    """Each process of an arm once it has stopped, and the card."""
     for i, r in enumerate(rec["nodes"]):
         ms = r["verify_ms"]
         log(f"[firehose/{rec['arm']}] node {i}: batch verification "
             f"{r['batch_verifies']} calls, median / p95 "
             + (f"{ms[0]:.3f} / {ms[1]:.3f} ms" if ms[0] is not None
                else "n/a")
-            + f"; signatures a call {dict(sorted(r['by_b'].items()))}; K3 "
+            + f"; signatures a call {min(r['by_b'], default=0)}-"
+            f"{max(r['by_b'], default=0)}, most often "
+            f"{max(r['by_b'], key=r['by_b'].get, default=0)}; K3 "
             f"launches {r['k3_launches']} (+{r['k3_warmup']} warm-up), "
             f"single re-checks 0; sweeps {r['sweeps']}, small windows "
-            f"{r['small_windows']}, K1 launches {r['k1_launches']} = "
+            f"{r['small_windows']} (min_window {r['min_window']}; flushes by "
+            f"the power of two at or above their undetermined events "
+            f"{dict(r['windows'])}), K1 launches {r['k1_launches']} = "
             f"{'the batcher' if r['batcher'] else 'its own'} sweeps, "
-            "fallbacks 0")
+            f"fallbacks 0; /stats {json.dumps(rec['stats'][i])}")
     log(f"[firehose/{rec['arm']}] {name_power or 'nvidia-smi: not available'}")
 
 
@@ -6587,6 +7176,62 @@ def firehose_phase(name_power: str, seed: int) -> list:
     return rows
 
 
+# -- phase 17: BASELINE config 3, sixteen processes on the async engine -----
+
+# BASELINE.json configs[2], "16-node docker net @10k tx/s, full TPU hashgraph
+# (rounds+fame+order)", in the JAX package's own form of it (bench.py's
+# bench_subprocess_cluster(transport="async", accelerator=True)): one
+# ``run --accelerator --transport async`` process a validator, all sixteen
+# in one admission domain (BABBLE_ACCEL_SLOT_DIR), under an open-loop
+# G16_RATE over the sixteen apps (625 tx/s an app)
+G16_NODES = 16
+G16_RATE = 10000.0
+# the async engine; and phase 8's suspend limit (a cut: sixteen nodes on
+# eight cores hold 3-4k undetermined events before their first block, past
+# the default's 100 a validator, where a node suspends and never commits)
+G16_ARGV = ("--transport", "async", "--suspend-limit", str(SUSPEND_LIMIT))
+G16_WINDOW_S = 60.0
+# the apps live in this many sender processes, four apps each
+G16_SENDERS = 4
+
+
+def gossip16_phase(name_power: str, seed: int) -> list:
+    """Phase 17: one ``firehose_arm`` of G16_NODES ``run --accelerator
+    --transport async`` processes sharing one slot directory, their apps in
+    G16_SENDERS sender processes, at G16_RATE (phase 16's warm-up, ten
+    blocks a node in at most G16_WINDOW_S, drain), the host verifier and
+    every other setting at its default. On top of the arm's checks, the
+    processes must have swept: K1's launches, each process's equal to its
+    sweeps, above 0 in all; else it fails with the windows its flushes saw.
+    Then, with the card to itself, K1 against its plain version and timed
+    at the shape the processes' sweeps took most often. Returns the rows of
+    the kernels line."""
+    t0 = time.perf_counter()
+    rec = firehose_arm("config 3, async engine", False, n=G16_NODES,
+                       rate=G16_RATE, argv=G16_ARGV, shared_slots=True,
+                       senders=G16_SENDERS, window_s=G16_WINDOW_S)
+    log_firehose(rec, name_power)
+    k1 = sum(r["k1_launches"] for r in rec["nodes"])
+    windows = sum((Counter(dict(r["windows"])) for r in rec["nodes"]),
+                  Counter())
+    log(f"[gossip16] K1 launches {k1} over {G16_NODES} processes (each = "
+        "its batcher's sweeps); flushes of every process by the power of two "
+        f"at or above their undetermined events {dict(sorted(windows.items()))}"
+        f", min_window {rec['nodes'][0]['min_window']}")
+    if k1 <= 0:
+        raise AssertionError("[gossip16] no process swept: every flush "
+                             "stayed below the offload's min_window")
+    shapes = Counter()
+    for r in rec["nodes"]:
+        for (B, W, P, S), n in r["sweep_shapes"]:
+            shapes[(W, P, S) if B == 1 else (B, W, P, S)] += n
+    rows = [k1_row("phase 17 config 3", shapes, {"config 3": k1},
+                   "config 3", seed=seed)]
+    log(f"[gossip16] phase 17: {time.perf_counter() - t0:.1f} s; "
+        f"{name_power or 'nvidia-smi: not available'}")
+    return rows
+
+
 # ``kernel_ab``: phase 2's times there, through functions every version of
 # this script has.
 _AB_CHILD = """
@@ -6628,7 +7273,6 @@ print("AB " + json.dumps({
 }))
 """
 
-
 def kernel_ab(trees) -> None:
     """Phase 2's kernel times, K2's block form at every shape of
     K2_BLOCK_SHAPES (at the tile each tree's C entry picks), and K3's at
@@ -6637,16 +7281,12 @@ def kernel_ab(trees) -> None:
     order given (old, new, new, old compares two commits on one card);
     prints one line per tree and shape, and a table of the per-tree
     medians."""
-    import os
-    import subprocess
-
     blocks = [shape for shape, _ in K2_BLOCK_SHAPES]
     shapes = json.dumps([K1_SHAPES, K2_SHAPES, VERIFY_TIMED_B, blocks])
     runs = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", _AB_CHILD, shapes],
-                              cwd=tree, capture_output=True, text=True,
-                              timeout=900)
+        proc = run_cmd([sys.executable, "-c", _AB_CHILD, shapes],
+                       timeout=900, cwd=tree)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode != 0 or not line:
             raise AssertionError(f"A/B run in {tree} exit {proc.returncode}:"
@@ -6684,15 +7324,11 @@ def nodes_ab(trees) -> None:
     on one card); prints each arm's committed tx/s, submit-to-commit
     p50/p95, seconds to settle and, where the tree records it, when each
     block committed on its first and last node."""
-    import os
-    import subprocess
-
     for tree in trees:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c",
-             "import chip_smoke; chip_smoke.node_cluster_child()"],
-            cwd=tree, capture_output=True, text=True, timeout=900)
+        proc = run_cmd([sys.executable, "-c",
+                        "import chip_smoke; chip_smoke.node_cluster_child()"],
+                       timeout=900, cwd=tree)
         lines = proc.stdout.splitlines()
         sys.stdout.write("".join(f"[nodes-ab] {tree}: {ln}\n" for ln in lines
                                  if not ln.startswith("NODES ")))
@@ -6727,11 +7363,17 @@ def main(argv=None) -> int:
     ap.add_argument("--nodes-ab", nargs="+", metavar="TREE",
                     help="only run phase 8's node cluster in each of these "
                     "checkouts in turn (e.g. old new new old) and exit")
-    ap.add_argument("--phase", type=int, choices=[14, 15, 16],
+    ap.add_argument("--phase", type=int, choices=[14, 15, 16, 17],
                     help="run phase 1 (the device and the build), then only "
                     "this phase")
     args = ap.parse_args(argv)
+    return guarded(lambda: run_phases(args))
 
+
+def run_phases(args):
+    """The run ``main`` asked for, under ``guarded``: an exit code, or the
+    call that prints the run's last lines once ``reap`` has found
+    nothing."""
     import torch
 
     t_start = time.perf_counter()
@@ -6767,22 +7409,26 @@ def main(argv=None) -> int:
             rows = membership_phase(dev["name_power"], args.seed + 106, live)
         finally:
             live.stop()
-        finish(rows, dev, t_start)
-        return 0
+        return lambda: finish(rows, dev, t_start)
     if args.phase == 15:
         t0 = time.perf_counter()
         so = kernels.build()
         log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
-        finish(byzantine_phase(dev["name_power"], Byzantine(args.seed + 107),
-                               args.seed + 108), dev, t_start)
-        return 0
+        rows = byzantine_phase(dev["name_power"], Byzantine(args.seed + 107),
+                               args.seed + 108)
+        return lambda: finish(rows, dev, t_start)
     if args.phase == 16:
         t0 = time.perf_counter()
         so = kernels.build()
         log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
-        finish(firehose_phase(dev["name_power"], args.seed + 109), dev,
-               t_start)
-        return 0
+        rows = firehose_phase(dev["name_power"], args.seed + 109)
+        return lambda: finish(rows, dev, t_start)
+    if args.phase == 17:
+        t0 = time.perf_counter()
+        so = kernels.build()
+        log(f"kernel build (set-up): {time.perf_counter() - t0:.2f} s, {so}")
+        rows = gossip16_phase(dev["name_power"], args.seed + 110)
+        return lambda: finish(rows, dev, t_start)
     # phase 4's stream; its host oracle replays in a child process from
     # here on, beside the card work of phases 1-3 and 5-7
     t0 = time.perf_counter()
@@ -6942,7 +7588,7 @@ def main(argv=None) -> int:
     # Phase 14's live cluster, in a fresh process, from here on beside
     # phases 11-13 (K1 counted from 0 there before its nodes are built)
     live = membership_live()
-    byz = []  # phase 15's arms, once phase 14's live cluster has ended
+    byz = []  # phase 15's arms
     try:
         # Phase 11: the mesh, on virtual shards of the card; counts from 0
         # for each run
@@ -6970,15 +7616,13 @@ def main(argv=None) -> int:
         # counted from 0 before each arm), then the live cluster's result.
         # Phase 15: the Byzantine fault model (config 5), its arms at once
         # in fresh processes (K3 and K1 counted from 0 in each once its
-        # nodes are up), started once phase 14's live cluster has ended
-        # (beside it, three 16-node clusters would share 8 cores) and run
-        # beside phase 14's replays; both end before phase 14's K1 checks
-        def start_byz():
-            byz.append(Byzantine(args.seed + 107))
-            return byz[0].wait
-
+        # nodes are up), started with phase 14's replays, beside them and
+        # the live cluster's last changes, so that the cluster's tail and
+        # phase 15 do not run in series (125 s and 180 s on a slow host);
+        # both end before phase 14's K1 checks
+        byz.append(Byzantine(args.seed + 107))
         rows += membership_phase(dev["name_power"], args.seed + 106, live,
-                                 start_byz)
+                                 byz[0].wait)
         rows += byzantine_phase(dev["name_power"], byz[0], args.seed + 108)
     finally:
         live.stop()
@@ -6990,8 +7634,11 @@ def main(argv=None) -> int:
     # arms have ended, so that no other node cluster shares the host's
     # cores with it and its tx/s and latency belong to the configuration
     rows += firehose_phase(dev["name_power"], args.seed + 109)
-    finish(rows, dev, t_start)
-    return 0
+
+    # Phase 17: BASELINE config 3, sixteen node processes on the async
+    # gossip engine under an open-loop 10k tx/s; last, alone on the host
+    rows += gossip16_phase(dev["name_power"], args.seed + 110)
+    return lambda: finish(rows, dev, t_start)
 
 
 def finish(rows, dev, t_start: float) -> None:

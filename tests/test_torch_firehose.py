@@ -1,11 +1,13 @@
 """Phase 16 of chip_smoke.py (BASELINE config 2, the socket-proxy firehose)
 rehearsed on the CPU at a small size, through the phase's own harness:
-``chip_smoke.firehose_run`` with its ``OpenLoopPacer`` and
-``exactly_once`` accounting, the code the card runs.
+``chip_smoke.firehose_run`` with its ``SenderLoad`` (the port's
+``DummySocketClient`` apps in a sender process, each under its
+``OpenLoopPacer``) and ``exactly_once`` accounting, the code the card runs.
 
 Four in-process nodes over the inmem transport, each behind a
-``SocketAppProxy`` with a ``DummySocketClient`` as its app on port 0, the
-offload on (the port's with ``accelerator_device="cpu"``, the JAX
+``SocketAppProxy`` on port 0 whose app is one of the sender process's
+``DummySocketClient``s (the apps speak the same JSON-RPC to either
+package's proxy), the offload on (the port's with ``accelerator_device="cpu"``, the JAX
 package's on its CPU path), take an open-loop load of 200 tx/s for about 3
 s, then drain. The same checks hold for both packages: identical block
 bodies at every index all nodes committed, every admitted transaction in
@@ -35,9 +37,10 @@ def _m(pkg: str, name: str):
     return importlib.import_module(f"{pkg}.{name}")
 
 
-def _socket_cluster(pkg: str):
+def _socket_cluster(pkg: str, tmp: str):
     """NODES nodes of ``pkg`` with the offload on the CPU, each with a
-    socket-proxy app; returns (nodes, apps, proxies), the nodes running."""
+    socket-proxy app in one ``SenderLoad`` process at RATE; returns (nodes,
+    load, proxies), the nodes running."""
     keys = _m(pkg, "crypto.keys")
     Peer = _m(pkg, "peers.peer").Peer
     rng = random.Random(16)
@@ -49,45 +52,48 @@ def _socket_cluster(pkg: str):
     network = _m(pkg, "net.inmem").InmemNetwork()
     sp = _m(pkg, "proxy.socket_proxy")
     extra = {"accelerator_device": "cpu"} if pkg == PKGS[1] else {}
-    nodes, apps, proxies = [], [], []
-    for i, k in enumerate(privs):
-        proxy = sp.SocketAppProxy("127.0.0.1:0", client_addr="")
-        app = _m(pkg, "dummy.socket_client").DummySocketClient(
-            "127.0.0.1:0", proxy.addr)
-        proxy.set_client_addr(app.addr)
-        conf = _m(pkg, "config.config").Config(
-            heartbeat_timeout=chip_smoke.HEARTBEAT_S,
-            slow_heartbeat_timeout=chip_smoke.SLOW_HEARTBEAT_S,
-            moniker=f"f{i}", log_level="error", accelerator=True, **extra)
-        node = _m(pkg, "node.node").Node(
-            conf, _m(pkg, "node.validator").Validator(k, f"f{i}"), peers,
-            peers, _m(pkg, "hashgraph.store").InmemStore(conf.cache_size),
-            network.new_transport(addr_of[k.public_key.hex()]), proxy)
-        node.init()
-        nodes.append(node)
-        apps.append(app)
-        proxies.append(proxy)
+    proxies = [sp.SocketAppProxy("127.0.0.1:0", client_addr="")
+               for _ in privs]
+    load = chip_smoke.SenderLoad([p.addr for p in proxies], RATE, 1, tmp)
+    nodes = []
+    try:
+        for i, (k, proxy) in enumerate(zip(privs, proxies)):
+            proxy.set_client_addr(load.addrs[i])
+            conf = _m(pkg, "config.config").Config(
+                heartbeat_timeout=chip_smoke.HEARTBEAT_S,
+                slow_heartbeat_timeout=chip_smoke.SLOW_HEARTBEAT_S,
+                moniker=f"f{i}", log_level="error", accelerator=True,
+                **extra)
+            node = _m(pkg, "node.node").Node(
+                conf, _m(pkg, "node.validator").Validator(k, f"f{i}"), peers,
+                peers, _m(pkg, "hashgraph.store").InmemStore(conf.cache_size),
+                network.new_transport(addr_of[k.public_key.hex()]), proxy)
+            node.init()
+            nodes.append(node)
+    except BaseException:
+        load.close()
+        raise
     for node in nodes:
         node.run_async()
-    return nodes, apps, proxies
+    return nodes, load, proxies
 
 
 @pytest.mark.parametrize("pkg", PKGS)
-def test_firehose_exactly_once_identical_blocks(pkg):
-    nodes, apps, proxies = _socket_cluster(pkg)
+def test_firehose_exactly_once_identical_blocks(pkg, tmp_path):
+    nodes, load, proxies = _socket_cluster(pkg, str(tmp_path))
     try:
         rec = chip_smoke.firehose_run(
-            pkg, apps,
+            pkg, load,
             lambda: [n.get_last_block_index() for n in nodes],
             lambda bi: [n.get_block(bi).body.hash() for n in nodes],
-            rate=RATE, warmup_s=WARMUP_S, blocks=None, window_s=WINDOW_S,
+            warmup_s=WARMUP_S, blocks=None, window_s=WINDOW_S,
             drain_s=DRAIN_S)
         fallbacks = [n.core.hg.accel.fallbacks for n in nodes]
     finally:
+        load.close()
         for n in nodes:
             n.shutdown()
-        for app, proxy in zip(apps, proxies):
-            app.close()
+        for proxy in proxies:
             proxy.close()
     # firehose_run raised on a failed check; what it measured is sane
     assert fallbacks == [0] * NODES

@@ -329,3 +329,89 @@ def test_cli_run_accelerator_without_card_exits_with_error(tmp_path):
                env={"CUDA_VISIBLE_DEVICES": ""}, timeout=120)
     assert out.returncode != 0
     assert "CUDA" in out.stderr
+
+
+# ``python -m <pkg> run`` with the node's go_func patched: at its first
+# call, on the thread that babbles, it signals its own process with SIGTERM
+# while it holds the node's routine lock, as a SIGTERM that arrives while
+# the babble loop starts a gossip thread does. One validator of two (the
+# other is never started), so the loop gossips, and so calls go_func.
+_SIGTERM_IN_GO_FUNC = """
+import importlib, os, signal, sys, time
+pkg = sys.argv[1]
+cli = importlib.import_module(pkg + ".cli.main")
+state = importlib.import_module(pkg + ".node.state")
+go_func, fired = state.StateManager.go_func, []
+
+def go_func_signalled(self, f):
+    if not fired:
+        fired.append(1)
+        with self._routines_lock:
+            os.kill(os.getpid(), signal.SIGTERM)
+            time.sleep(0.5)
+    return go_func(self, f)
+
+state.StateManager.go_func = go_func_signalled
+rc = cli.main(sys.argv[2:])
+print("fired", len(fired), flush=True)
+sys.exit(rc)
+"""
+
+
+def test_cli_run_exits_on_sigterm_that_lands_in_go_func(tmp_path):
+    """SIGTERM while the babble loop holds the node's routine lock: the
+    port's ``run`` shuts down and exits 0. Its handler used to call
+    ``engine.shutdown()`` itself, on the main thread that babbled, and
+    ``wait_routines`` then waited forever for the lock that thread held;
+    the JAX package's ``run`` (``babble_tpu/cli/main.py``) still does, so
+    the case is run on the port only (ROADMAP, Queue C)."""
+    from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
+    from babble_tpu_torch.crypto.keys import generate_key
+
+    keys = [generate_key() for _ in range(2)]
+    SimpleKeyfile(str(tmp_path / "priv_key")).write_key(keys[0])
+    (tmp_path / "peers.json").write_text(json.dumps([
+        {"NetAddr": f"127.0.0.1:{port}", "PubKeyHex": k.public_key.hex(),
+         "Moniker": f"n{i}"}
+        for i, (k, port) in enumerate(zip(keys, (1, 2)))]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SIGTERM_IN_GO_FUNC, "babble_tpu_torch",
+         "run", "--datadir", str(tmp_path), "--listen", "127.0.0.1:0",
+         "--no-service", "--inmem-dummy", "--heartbeat", "0.05",
+         "--log", "error"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    assert "fired 1" in out
+
+
+def test_cli_run_exits_with_error_when_the_service_address_is_taken(tmp_path):
+    """``run`` whose HTTP service cannot bind (another socket listens on
+    ``--service-listen``) exits non-zero with the bind error, as it did
+    when the engine ran on the main thread, and never reports a clean
+    stop; the engine is shut down on the way out, so the process ends."""
+    import socket
+
+    from babble_tpu_torch.crypto.keyfile import SimpleKeyfile
+
+    keys = [generate_key() for _ in range(2)]
+    SimpleKeyfile(str(tmp_path / "priv_key")).write_key(keys[0])
+    (tmp_path / "peers.json").write_text(json.dumps([
+        {"NetAddr": f"127.0.0.1:{port}", "PubKeyHex": k.public_key.hex(),
+         "Moniker": f"n{i}"}
+        for i, (k, port) in enumerate(zip(keys, (1, 2)))]))
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        host, port = taken.getsockname()
+        out = _cli("run", "--datadir", str(tmp_path),
+                   "--listen", "127.0.0.1:0",
+                   "--service-listen", f"{host}:{port}", "--inmem-dummy",
+                   "--heartbeat", "0.05", "--log", "error", timeout=60)
+    assert out.returncode != 0
+    assert "Address already in use" in out.stderr, out.stderr[-3000:]
